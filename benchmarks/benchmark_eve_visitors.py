@@ -4,7 +4,7 @@ Counterpart of the reference's
 tests/eve_tests/benchmarks/benchmark_eve_visitors.py: per-node dispatch
 cost of NodeVisitor / NodeTranslator / TemplatedGenerator over a deep
 synthetic IR tree. These bound the compile-time overhead of every
-analysis pass (the TPU build's passes run at stencil-build time only —
+analysis pass (the passes run at stencil-build time only —
 never per call — but frontend latency still matters for JIT workflows).
 
 Run: python benchmarks/benchmark_eve_visitors.py

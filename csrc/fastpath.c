@@ -1,7 +1,7 @@
 /* gt4py_tpu native runtime helpers.
  *
  * The reference's native layer is generated C++ bound with pybind11
- * (pyext_builder.py); on TPU the compute path is Mosaic/XLA, and the native
+ * (pyext_builder.py); here the compute path is XLA on the GPU, and the native
  * runtime pieces that remain host-side are implemented here and bound via
  * ctypes (no pybind11 dependency):
  *

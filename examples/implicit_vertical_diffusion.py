@@ -6,8 +6,8 @@ vertical Laplacian is the canonical implicit column solve of atmospheric
 physics parameterizations (the reference exercises the same algebra in
 test_vertical_advection / tridiagonal suites). Written in the field view
 as two scan operators composed inside one field operator, it compiles to a
-SINGLE cartesian stencil whose forward/backward sweeps run on the staged
-Pallas kernels with the modified coefficients in VMEM carry rings
+SINGLE cartesian stencil whose forward/backward sweeps run on the K-sweep
+kernel with the modified coefficients in register carries
 (next/cartesian_bridge.py trace_scan).
 
 Run:  python examples/implicit_vertical_diffusion.py
@@ -25,7 +25,7 @@ KDim = Dimension("KDim", kind=DimensionKind.VERTICAL)
 
 @gtx.scan_operator(axis=KDim, forward=True, init=(0.0, 0.0))
 def thomas_forward(carry, a: float, b: float, c: float, d: float):
-    """Modified-coefficient sweep: cp/dp stay in the carry (VMEM)."""
+    """Modified-coefficient sweep: cp/dp stay in the carry (registers)."""
     cp_prev, dp_prev = carry
     denom = b - a * cp_prev
     return (c / denom, (d - a * dp_prev) / denom)
@@ -36,7 +36,7 @@ def thomas_backward(x_kp1, cp: float, dp: float):
     return dp - cp * x_kp1
 
 
-@gtx.field_operator(backend="tpu:pallas")
+@gtx.field_operator(backend="gpu")
 def diffuse_implicit(q, kappa, kidx, klast: int, dt: float, dz2: float):
     """One backward-Euler step of d q/dt = d/dz (kappa dq/dz).
 
@@ -90,9 +90,8 @@ def main() -> None:
     var = next(
         (v for v in diffuse_implicit._bridge_cache.values() if v is not None), None
     )
-    strategy = getattr(var.backend, "last_strategy", None) if var else "embedded"
-    print(f"implicit vertical diffusion: max |err| = {err:.2e} "
-          f"(bridge strategy: {strategy})")
+    kernel = var.backend.last_kernel if var else "embedded"
+    print(f"implicit vertical diffusion: max |err| = {err:.2e} (kernel: {kernel})")
     assert err < 1e-10
 
 

@@ -2,7 +2,7 @@
 demo_isentropic_diagnostics.ipynb): one stencil chains a FORWARD
 hydrostatic pressure integration, a PARALLEL Exner function, and BACKWARD
 Montgomery-potential / isentrope-height integrations — the multi-loop
-sequential composition the staged Pallas kernels serve as one chain.
+sequential composition the K-sweep kernel serves on the ``gpu`` backend.
 
 Run: python examples/isentropic_diagnostics.py [backend]
 """

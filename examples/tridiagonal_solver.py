@@ -1,9 +1,9 @@
 """Tridiagonal solve with FORWARD/BACKWARD computations (Thomas algorithm).
 
 The canonical sequential-K workload (reference
-stencil_definitions.py:220): on the tpu:pallas backend both sweeps run as
-pipelined K-plane kernels with the recurrence carried in VMEM
-(docs/performance.md). Run: python examples/tridiagonal_solver.py
+stencil_definitions.py:220): on the gpu backend both sweeps run in the
+K-sweep kernel, one thread per column with the recurrence carried in
+registers (docs/performance.md). Run: python examples/tridiagonal_solver.py
 """
 
 import numpy as np
@@ -19,7 +19,7 @@ from gt4py_tpu.cartesian.gtscript import BACKWARD, FORWARD, computation, interva
 Field3D = gtscript.Field[np.float32]
 
 
-@gtscript.stencil(backend="tpu:pallas", literal_float_precision=32)
+@gtscript.stencil(backend="gpu", literal_float_precision=32)
 def tridiagonal_solver(
     inf: Field3D, diag: Field3D, sup: Field3D, rhs: Field3D, out: Field3D
 ):
@@ -40,14 +40,14 @@ def tridiagonal_solver(
 def main():
     shape = (64, 64, 48)
     # System with known solution x == 1: rhs = row sums of [-1, 3, 1].
-    inf = storage.full(shape, -1.0, np.float32, backend="tpu:pallas")
-    diag = storage.full(shape, 3.0, np.float32, backend="tpu:pallas")
-    sup = storage.full(shape, 1.0, np.float32, backend="tpu:pallas")
+    inf = storage.full(shape, -1.0, np.float32, backend="gpu")
+    diag = storage.full(shape, 3.0, np.float32, backend="gpu")
+    sup = storage.full(shape, 1.0, np.float32, backend="gpu")
     rhs_np = np.full(shape, 3.0, dtype=np.float32)
     rhs_np[:, :, 0] = 4.0   # first row: 3 + 1
     rhs_np[:, :, -1] = 2.0  # last row: -1 + 3
-    rhs = storage.from_array(rhs_np, np.float32, backend="tpu:pallas")
-    out = storage.zeros(shape, np.float32, backend="tpu:pallas")
+    rhs = storage.from_array(rhs_np, np.float32, backend="gpu")
+    out = storage.zeros(shape, np.float32, backend="gpu")
 
     tridiagonal_solver(inf, diag, sup, rhs, out)
     result = np.asarray(out)

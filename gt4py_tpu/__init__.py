@@ -1,10 +1,11 @@
-"""gt4py_tpu — TPU-native stencil computation framework.
+"""gt4py_tpu — stencil computation framework on JAX, run on NVIDIA GPUs.
 
-A from-scratch, TPU-first framework with the capabilities of GridTools/gt4py
+A from-scratch framework with the capabilities of GridTools/gt4py
 (reference mounted at /root/reference): the GTScript cartesian DSL and the
-declarative field-view DSL, compiled to JAX/XLA/Pallas instead of generated
-C++/CUDA. See ARCHITECTURE.md for the layer map and the mapping from every
-reference component to its TPU-native equivalent.
+declarative field-view DSL, compiled to JAX/XLA (plus one Pallas-Triton
+kernel for vertical sweeps) instead of generated C++/CUDA. See
+ARCHITECTURE.md for the layer map and the mapping from every reference
+component to its equivalent here.
 """
 
 import jax as _jax

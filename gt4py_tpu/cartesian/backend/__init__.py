@@ -11,4 +11,3 @@ from gt4py_tpu.cartesian.backend import c_backend  # noqa: F401,E402
 from gt4py_tpu.cartesian.backend import debug_backend  # noqa: F401,E402
 from gt4py_tpu.cartesian.backend import jax_backend  # noqa: F401,E402
 from gt4py_tpu.cartesian.backend import numpy_backend  # noqa: F401,E402
-from gt4py_tpu.cartesian.backend import pallas_backend  # noqa: F401,E402

@@ -2,7 +2,7 @@
 
 A backend turns an :class:`AnalyzedStencil` into a runnable computation.
 Unlike the reference — which generates source code, compiles extension
-modules and imports them — TPU backends build Python callables around the
+modules and imports them — backends here build Python callables around the
 GTIR trace; XLA is the code generator and its persistent compilation cache
 plays the role of the reference's ``.gt_cache`` (see caching.py).
 """
@@ -33,13 +33,13 @@ def from_name(name: str) -> Type["Backend"]:
 class Backend(abc.ABC):
     """One compiled stencil on one backend."""
 
-    #: registry name, e.g. "jax", "numpy", "debug", "tpu:pallas"
+    #: registry name, e.g. "jax", "numpy", "debug", "gpu"
     name: str = ""
     #: which array type the backend consumes: "jax" or "numpy"
     array_kind: str = "jax"
     #: storage/layout info for the storage layer (API parity with
     #: reference Backend.storage_info)
-    storage_info: dict = {"alignment": 1, "device": "tpu"}
+    storage_info: dict = {"alignment": 1, "device": "cpu"}
 
     def __init__(self, analyzed: AnalyzedStencil, options: dict):
         self.analyzed = analyzed
@@ -69,9 +69,7 @@ class Backend(abc.ABC):
         origins: dict[str, tuple[int, int, int]],
         cache_key: Any = None,
     ) -> dict[str, Any]:
-        """Execute from per-argument infos (lazy arrays). The default
-        materializes public arrays; layout-aware backends override this to
-        consume storages' native-layout caches directly."""
+        """Execute from per-argument infos (lazy arrays)."""
         import numpy as np
 
         arrays = {}
@@ -188,16 +186,3 @@ def chain_cycle_len(roles, swap: dict[str, str]) -> int:
         if c > len(roles) + 1:
             raise ValueError(f"swap mapping is not a permutation: {swap!r}")
     return c
-
-
-class NativeResult:
-    """A written result still in backend-native layout: the stencil runtime
-    installs it on the Storage (native cache) instead of rebinding the
-    public array, so chained calls skip layout conversion entirely."""
-
-    __slots__ = ("key", "native", "decode")
-
-    def __init__(self, key: Any, native: Any, decode):
-        self.key = key
-        self.native = native
-        self.decode = decode

@@ -1,6 +1,6 @@
 """Native compiled-C CPU backend (``cpu:c``).
 
-TPU-framework counterpart of the reference's native CPU backends
+Counterpart of the reference's native CPU backends
 (``gt:cpu_ifirst``/``gt:cpu_kfirst``,
 /root/reference/src/gt4py/cartesian/backend/gtcpp_backend.py:129): the
 stencil is rendered to C (c_codegen.py), compiled on first use with the
@@ -13,7 +13,7 @@ Arrays are mutated in place (reference native-backend semantics).
 Constructs without a C rendering (half-precision dtypes) fall back
 transparently to the vectorized numpy evaluator; ``last_path`` records
 which path served the call (``"c"`` or ``"numpy_fallback"``) so tests can
-assert native service, mirroring the Pallas backend's ``last_strategy``.
+assert native service, mirroring the ``gpu`` backend's ``last_kernel``.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """GTIR → C source generation for the native ``cpu:c`` backend.
 
-TPU-native counterpart of the reference's generated-C++ backends
+Counterpart of the reference's generated-C++ backends
 (/root/reference/src/gt4py/cartesian/backend/gtcpp_backend.py:169,
 gt4py/cartesian/gtc/gtcpp/gtcpp_codegen.py): the lowered GTIR is rendered
 to a single self-contained C translation unit (triple loop nests over the
@@ -282,8 +282,7 @@ class _Generator:
         self.lines.append("}")
         # NOTE: deliberately name-free — the .so cache is keyed by source
         # hash, and identical definitions registered under different stencil
-        # names must share one compiled object (cf. the location-free tk
-        # probe-cache keys in pallas_backend).
+        # names must share one compiled object.
         source = (
             "/* generated by gt4py_tpu cpu:c backend */\n"
             + _PRELUDE

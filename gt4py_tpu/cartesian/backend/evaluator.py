@@ -1,6 +1,6 @@
 """Vectorized GTIR execution engine.
 
-This module is the TPU-native replacement for the reference's code
+This module is the replacement for the reference's code
 generators: where the reference emits NumPy source (gtc/numpy/npir_codegen.py)
 or C++/CUDA (gtc/gtcpp/, gtc/dace/), this engine *traces* the lowered GTIR
 directly into array operations:
@@ -12,10 +12,11 @@ directly into array operations:
 
   * every field gets a *window* — the sub-array the stencil actually
     touches (domain extended by the field's access extent); temporaries are
-    windows only and never see HBM round-trips XLA can't fuse away,
+    windows only and never see device-memory round-trips XLA can't fuse away,
   * PARALLEL units trace to shifted-slice arithmetic on windows, which XLA
     fuses into single kernels,
-  * FORWARD/BACKWARD sections trace to ``lax.scan`` with **plane carries**:
+  * FORWARD/BACKWARD sections trace to ``lax.scan`` with **plane carries**
+    (or, on the ``gpu`` backend, to the K-sweep kernel, ksweep_triton.py):
     the K-offset-read planes of fields written in the section ride the scan
     carry (depth = max offset — the reference's K-cache analysis,
     gtc/passes/oir_optimizations/caches.py:92), other fields stream in as
@@ -42,6 +43,7 @@ from typing import Any, Optional
 import numpy as np
 
 from gt4py_tpu.cartesian import gtir
+from gt4py_tpu.cartesian.backend import ksweep_triton
 from gt4py_tpu.cartesian.definitions import Extent
 from gt4py_tpu.cartesian.passes.extents import iter_writes, _iter_reads
 from gt4py_tpu.cartesian.passes.pipeline import AnalyzedStencil
@@ -185,12 +187,11 @@ def _apply_binop(xp, op, left, right):
     C = gtir.ComparisonOperator
     L = gtir.LogicalOperator
     if isinstance(op, C):
-        # Mosaic has no bf16/f16 vector comparison ("Target does not
-        # support this comparison"); f32 embeds a half-float exactly, so
-        # widening ONLY the half operand is bit-identical — the other side
-        # keeps its dtype (an f64/int64 counterpart must not be narrowed)
-        # and ordinary promotion finishes the job. Applied in every
-        # backend for parity.
+        # Half-float comparisons widen ONLY the half operand to f32, which
+        # embeds it exactly (bit-identical result) — the other side keeps
+        # its dtype (an f64/int64 counterpart must not be narrowed) and
+        # ordinary promotion finishes the job. Applied in every backend
+        # for parity.
         from gt4py_tpu.core.definitions import HALF_FLOAT_DTYPES
 
         if getattr(left, "dtype", None) in HALF_FLOAT_DTYPES:
@@ -215,12 +216,15 @@ def _apply_binop(xp, op, left, right):
         # batch dims; the trailing data dims multiply. NumPy's 1-D vector
         # special case doesn't apply to batched operands, so vectors get an
         # explicit trailing/leading axis.
+        # A float32 product on the GPU runs in TF32 (about three decimal
+        # digits) unless asked for full precision.
+        kw = {} if xp is np else {"precision": "highest"}
         ld, rd = left.ndim - 3, right.ndim - 3
         if ld == 2 and rd == 1:
-            return xp.matmul(left, right[..., None])[..., 0]
+            return xp.matmul(left, right[..., None], **kw)[..., 0]
         if ld == 1 and rd == 2:
-            return xp.matmul(left[..., None, :], right)[..., 0, :]
-        return xp.matmul(left, right)
+            return xp.matmul(left[..., None, :], right, **kw)[..., 0, :]
+        return xp.matmul(left, right, **kw)
     if op == C.EQ:
         return xp.equal(left, right)
     if op == C.NE:
@@ -260,18 +264,45 @@ class _Ctx:
 class _PlaneCtxData:
     """Read/write state for one iteration of a plane-carry scan."""
 
-    __slots__ = ("section_written", "forward", "carry", "xs", "current", "ks", "k_value")
+    __slots__ = (
+        "section_written", "forward", "carry", "xs", "current", "k_value", "tile_load"
+    )
 
-    def __init__(self, section_written, forward, carry, xs, current, ks, k_value=None):
+    def __init__(
+        self, section_written, forward, carry, xs, current, k_value=None, tile_load=None
+    ):
         self.section_written = section_written
         self.forward = forward
         self.carry = carry
         self.xs = xs
         self.current = current
-        self.ks = ks
-        #: traced absolute K index of this scan step (None unless the
-        #: section reads the iteration index)
+        #: traced absolute K index of this level (None unless the section
+        #: reads the iteration index)
         self.k_value = k_value
+        #: K-sweep kernel tiles: ``tile_load(name, i, j, dk)`` loads the
+        #: tile of a field not written in the section at window offset
+        #: (i, j) and K offset ``dk`` (None on the XLA scan)
+        self.tile_load = tile_load
+
+
+class _PlanePlan:
+    """What one K level of a sequential section reads and carries."""
+
+    __slots__ = ("section", "forward", "written", "depth", "xs_keys", "uses_k_iter")
+
+    def __init__(self, section, forward, written, depth, xs_keys, uses_k_iter):
+        self.section = section
+        self.forward = forward
+        #: fields written in the section (sorted)
+        self.written = written
+        #: written field -> number of already-computed planes its reads need
+        self.depth = depth
+        #: (field, dk) planes read at pre-section values
+        self.xs_keys = xs_keys
+        self.uses_k_iter = uses_k_iter
+
+
+_K_ITER = ("__iteration_k__", 0)
 
 
 class _PlaneUnsupported(Exception):
@@ -289,6 +320,7 @@ class Evaluator:
         arrays: dict[str, Any],
         scalars: dict[str, Any],
         ns: str,
+        ksweep: Optional[str] = None,
     ):
         self.analyzed = analyzed
         self.stencil = analyzed.stencil
@@ -298,6 +330,11 @@ class Evaluator:
         self.scalars = scalars
         self.ops = _NamespaceOps(ns)
         self.natives = _native_impls(self.ops)
+        #: K-sweep kernel mode ("triton" or "triton-interpret") tried for
+        #: plane-carry sections; None keeps every section on the XLA scan
+        self.ksweep = ksweep
+        #: kernel modes that served a section of this trace
+        self.kernels: set[str] = set()
 
         self.dims: dict[str, tuple[bool, bool, bool]] = {}
         self.data_ndims: dict[str, int] = {}
@@ -338,9 +375,9 @@ class Evaluator:
 
         K windows that extend past the array edge (scan compositions read
         k±1 over the WHOLE column; boundary levels select the value away)
-        clamp to the boundary level — the same semantics as the staged
-        Pallas kernel and the debug backend — materialized as edge padding
-        on read-only fields."""
+        clamp to the boundary level — the same semantics as the K-sweep
+        kernel and the debug backend — materialized as edge padding on
+        read-only fields."""
         self.win: dict[str, Any] = {}
         self._win_slices: dict[str, tuple] = {}
         for name, arr in self.arrays.items():
@@ -441,10 +478,16 @@ class Evaluator:
             length = ke - ks
             if self.ops.kind == "jax" and length > _UNROLL_MAX:
                 try:
-                    self._plane_scan_section(section, ks, ke, backward)
-                    continue
+                    plan = self._plane_plan(section, backward)
                 except _PlaneUnsupported:
-                    pass
+                    plan = None
+                if plan is not None:
+                    if self.ksweep is not None and ksweep_triton.unsupported(self, plan) is None:
+                        ksweep_triton.run_section(self, plan, ks, ke, self.ksweep)
+                        self.kernels.add(self.ksweep)
+                    else:
+                        self._plane_scan_section(plan, ks, ke)
+                    continue
             k_range = range(ks, ke)
             if backward:
                 k_range = reversed(k_range)
@@ -454,12 +497,10 @@ class Evaluator:
 
     # -- plane-carry scan --------------------------------------------------
 
-    def _plane_scan_section(self, section, ks: int, ke: int, backward: bool) -> None:
-        import jax
-        import jax.numpy as jnp
-        from jax import lax
-
-        xp = self.ops.xp
+    def _plane_plan(self, section, backward: bool) -> "_PlanePlan":
+        """Which planes one K level of ``section`` reads and carries;
+        raises :class:`_PlaneUnsupported` for constructs the plane scan
+        cannot express."""
         forward = not backward
         written = sorted({w.name for stmt in section.body for w in iter_writes(stmt)})
         written_set = set(written)
@@ -467,8 +508,6 @@ class Evaluator:
         def is_updated_read(dk: int) -> bool:
             return dk < 0 if forward else dk > 0
 
-        # Collect (field, dk) read pairs; reject constructs the plane scan
-        # cannot express.
         read_pairs: set[tuple[str, int]] = set()
         for stmt in section.body:
             if isinstance(stmt, gtir.While):
@@ -482,8 +521,6 @@ class Evaluator:
                 if not any(self.dims.get(access.name, (True,) * 3)):
                     continue  # GlobalTable: read directly
                 if access.koffset is not None or access.abs_k is not None:
-                    if access.name in written_set:
-                        raise _PlaneUnsupported("dynamic K read of written field")
                     raise _PlaneUnsupported("dynamic K read in sequential section")
                 if not self.dims[access.name][2]:
                     continue  # K-less fields read directly from windows
@@ -505,11 +542,49 @@ class Evaluator:
             else:
                 xs_keys.add((name, dk))
 
-        L = ke - ks
-        nk_win = {}
+        from gt4py_tpu import eve
 
-        def k_rel(name: str, k: int) -> int:
-            return k - self.f_ext[name].k[0]
+        uses_k_iter = any(
+            isinstance(n, gtir.IteratorAccess)
+            for stmt in section.body
+            for n in eve.walk_values(stmt)
+        )
+        return _PlanePlan(section, forward, written, depth, sorted(xs_keys), uses_k_iter)
+
+    def _k_rel(self, name: str, k: int) -> int:
+        """Window-relative index of absolute level ``k`` of ``name``."""
+        return k - self.f_ext[name].k[0]
+
+    def _plane_step(self, plan: "_PlanePlan", carry, x, k_value, tile_load=None):
+        """One K level of a plane-carry section: the body shared by the
+        XLA scan and the K-sweep kernel. ``carry[name]`` holds the planes
+        of levels already computed (nearest first); ``x[(name, dk)]`` the
+        pre-section plane of ``name`` at offset ``dk``. Returns the new
+        carry and the written planes of this level."""
+        plane = _PlaneCtxData(
+            set(plan.written), plan.forward, carry, x, {}, k_value, tile_load
+        )
+        for stmt in plan.section.body:
+            ext = self.analyzed.stmt_extents[stmt]
+            ctx = _Ctx(ext, 0, 1, 0, plane)
+            assert isinstance(stmt, gtir.Assign)
+            value = self._broadcast(self.eval_expr(stmt.value, ctx), ctx)
+            mask = self._full_mask(stmt, ctx)
+            self._plane_write(stmt.target, value, mask, ctx)
+        new_carry = {}
+        for name, planes in carry.items():
+            cur = plane.current.get(name)
+            if cur is None:
+                cur = x[(name, 0)]
+            new_carry[name] = (cur,) + planes[:-1]
+        ys = {name: plane.current.get(name, x[(name, 0)]) for name in plan.written}
+        return new_carry, ys
+
+    def _plane_scan_section(self, plan: "_PlanePlan", ks: int, ke: int) -> None:
+        import jax.numpy as jnp
+        from jax import lax
+
+        forward = plan.forward
 
         def window_k_slab(name: str, k0: int, k1: int):
             """(NI, NJ, L) K-slab of a field window, clamped to the window
@@ -518,7 +593,7 @@ class Evaluator:
             dims = self.dims[name]
             assert dims[2]
             kax = sum(dims[:2])
-            z0, z1 = k_rel(name, k0), k_rel(name, k1)
+            z0, z1 = self._k_rel(name, k0), self._k_rel(name, k1)
             pad_lo = max(0, -z0)
             pad_hi = max(0, z1 - w.shape[kax])
             z0c, z1c = max(z0, 0), min(z1, w.shape[kax])
@@ -534,71 +609,42 @@ class Evaluator:
             return slab
 
         xs = {}
-        for name, dk in xs_keys:
+        for name, dk in plan.xs_keys:
             slab = window_k_slab(name, ks + dk, ke + dk)
             kax = sum(self.dims[name][:2])
             xs[(name, dk)] = jnp.moveaxis(slab, kax, 0)  # (L, ...)
-
         # Iterator-access (current-K) reads: stream the absolute K index as
         # an extra scan input (lax.scan's reverse handles BACKWARD order).
-        from gt4py_tpu import eve
-
-        uses_k_iter = any(
-            isinstance(n, gtir.IteratorAccess)
-            for stmt in section.body
-            for n in eve.walk_values(stmt)
-        )
-        _K_ITER = ("__iteration_k__", 0)
-        if uses_k_iter:
+        if plan.uses_k_iter:
             xs[_K_ITER] = jnp.arange(ks, ke, dtype=np.int32)
 
         step = 1 if forward else -1
+        first_k = ks if forward else ke - 1
         carry0 = {}
-        for name, d in depth.items():
-            if d == 0:
-                continue
-            planes = []
-            first_k = ks if forward else ke - 1
-            for dist in range(1, d + 1):
-                planes.append(
-                    window_k_slab(name, first_k - step * dist, first_k - step * dist + 1)
+        for name, d in plan.depth.items():
+            if d:
+                carry0[name] = tuple(
+                    jnp.squeeze(
+                        window_k_slab(name, first_k - step * dist, first_k - step * dist + 1),
+                        axis=2,
+                    )
+                    for dist in range(1, d + 1)
                 )
-            carry0[name] = tuple(
-                jnp.squeeze(p, axis=sum(self.dims[name][:2])) for p in planes
-            )
-
-        section_body = section.body
 
         def body(carry, x):
-            plane = _PlaneCtxData(
-                written_set, forward, carry, x, {}, ks, k_value=x.get(_K_ITER)
-            )
-            for stmt in section_body:
-                ext = self.analyzed.stmt_extents[stmt]
-                ctx = _Ctx(ext, ks, ks + 1, 0, plane)
-                assert isinstance(stmt, gtir.Assign)
-                value = self._broadcast(self.eval_expr(stmt.value, ctx), ctx)
-                mask = self._full_mask(stmt, ctx)
-                self._plane_write(stmt.target, value, mask, ctx)
-            new_carry = {}
-            for name, planes in carry.items():
-                cur = plane.current.get(name)
-                if cur is None:
-                    cur = x[(name, 0)]
-                new_carry[name] = (cur,) + planes[:-1]
-            ys = {name: plane.current.get(name, x[(name, 0)]) for name in written}
-            return new_carry, ys
+            return self._plane_step(plan, carry, x, x.get(_K_ITER))
 
-        _, ys = lax.scan(body, carry0, xs, reverse=backward)
+        _, ys = lax.scan(body, carry0, xs, reverse=not forward)
+        for name in plan.written:
+            self._set_levels(name, ks, jnp.moveaxis(ys[name], 0, 2))
 
-        for name in written:
-            w = self._get_window(name)
-            dims = self.dims[name]
-            kax = sum(dims[:2])
-            stacked = jnp.moveaxis(ys[name], 0, kax)
-            z0 = k_rel(name, ks)
-            idx = (slice(None),) * kax + (slice(z0, z0 + L),)
-            self.win[name] = w.at[idx].set(stacked.astype(w.dtype))
+    def _set_levels(self, name: str, ks: int, levels) -> None:
+        """Store ``levels`` (NI, NJ, L) into the window of ``name`` from
+        absolute level ``ks`` on."""
+        w = self._get_window(name)
+        z0 = self._k_rel(name, ks)
+        idx = (slice(None), slice(None), slice(z0, z0 + levels.shape[2]))
+        self.win[name] = w.at[idx].set(levels.astype(w.dtype))
 
     def _plane_read(self, access: gtir.FieldAccess, ctx: _Ctx):
         """Resolve a field read inside a plane-carry scan iteration; returns
@@ -634,14 +680,10 @@ class Evaluator:
         NI_u, NJ_u = value2d.shape
         xi = ext.i[0] - f_ext.i[0]
         xj = ext.j[0] - f_ext.j[0]
-        full_cover = (
-            mask2d is None
-            and xi == 0
-            and xj == 0
-            and (NI_u, NJ_u) == base.shape[:2]
-        )
-        if full_cover:
-            plane.current[name] = value2d
+        if (xi, xj) == (0, 0) and (NI_u, NJ_u) == base.shape[:2]:
+            plane.current[name] = (
+                value2d if mask2d is None else xp.where(mask2d, value2d, base)
+            )
             return
         sub = base[xi : xi + NI_u, xj : xj + NJ_u]
         if mask2d is not None:
@@ -754,19 +796,23 @@ class Evaluator:
 
         # Plane-scan context: K-ful fields resolve via the plane machinery.
         if ctx.plane is not None and dims[2]:
-            plane2d = self._plane_read(access, ctx)
-            di, dj, _ = access.offset
+            di, dj, dk = access.offset
             ext = ctx.ext
             f_ext = self.f_ext[name]
             xi = ext.i[0] + di - f_ext.i[0] if dims[0] else None
             xj = ext.j[0] + dj - f_ext.j[0] if dims[1] else None
-            sl = []
-            if dims[0]:
-                sl.append(slice(xi, xi + Ni))
-            if dims[1]:
-                sl.append(slice(xj, xj + Nj))
-            value = plane2d[tuple(sl)]
-            value = value[..., None]  # re-add K axis (length 1)
+            plane = ctx.plane
+            if plane.tile_load is not None and name not in plane.section_written:
+                value = plane.tile_load(name, xi, xj, dk)
+            else:
+                sl = []
+                if dims[0]:
+                    sl.append(slice(xi, xi + Ni))
+                if dims[1]:
+                    sl.append(slice(xj, xj + Nj))
+                value = self._plane_read(access, ctx)[tuple(sl)]
+            # re-add the K axis (length 1) ahead of any data dimensions
+            value = self.ops.xp.expand_dims(value, sum(dims[:2]))
             value = self._expand_missing(value, (dims[0], dims[1], True), Ni, Nj, Nk)
             if access.data_index:
                 value = self._apply_data_index(value, access.data_index, ctx)

@@ -1,11 +1,16 @@
-"""JAX/XLA backend — the workhorse TPU backend.
+"""JAX/XLA backends: ``jax`` and ``gpu``.
 
 Counterpart of the reference's compiled backends (``gt:cpu_*``/``gt:gpu``,
 /root/reference/src/gt4py/cartesian/backend/gtcpp_backend.py): instead of
 generating C++/CUDA and binding through pybind11, the lowered GTIR is traced
 once per (domain, origins, shapes) specialization into a ``jax.jit``
-function; XLA fuses the parallel statements and compiles K scans into native
-TPU loops. Written fields are donated so updates happen in place in HBM.
+function; XLA fuses the parallel statements into loop kernels and compiles
+K scans into device loops. Written fields are donated so updates happen in
+place in device memory.
+
+``gpu`` is ``jax`` plus the K-sweep kernel (ksweep_triton.py) for the
+FORWARD/BACKWARD sections it accepts; ``last_kernel`` says which path
+served the latest call: ``xla``, ``triton`` or ``triton-interpret``.
 
 The specialization cache mirrors the reference's ``CompiledProgramsPool``
 design (next/otf/compiled_program.py:333): keyed by static call descriptors,
@@ -14,10 +19,11 @@ compiled on miss, reused on hit.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 
+from gt4py_tpu.cartesian.backend import ksweep_triton
 from gt4py_tpu.cartesian.backend.base import (
     Backend,
     chain_cycle_len,
@@ -32,7 +38,9 @@ from gt4py_tpu.cartesian.definitions import AccessKind
 class JaxBackend(Backend):
     name = "jax"
     array_kind = "jax"
-    storage_info = {"alignment": 128, "device": "tpu"}
+    storage_info = {"alignment": 128, "device": "gpu"}
+    #: K-sweep kernel mode for plane-carry sections (None: XLA scan only)
+    ksweep: Optional[str] = None
 
     def __init__(self, analyzed, options):
         super().__init__(analyzed, options)
@@ -44,36 +52,27 @@ class JaxBackend(Backend):
             for name, info in analyzed.field_infos.items()
             if info.access & AccessKind.WRITE
         ]
+        self.last_kernel: Optional[str] = None
 
-    def _build(self, domain, origins_key):
+    def _build(self, domain, origins_key, donate: bool = True):
+        """The jitted step and the list its trace fills with the kernel
+        modes that served it."""
         import jax
 
         origins = dict(origins_key)
         analyzed = self.analyzed
         written = self.written
+        ksweep = self.ksweep
+        served: list[str] = []
 
         def fn(written_arrays, read_arrays, scalars):
             arrays = {**read_arrays, **written_arrays}
-            ev = Evaluator(analyzed, domain, origins, arrays, scalars, ns="jax")
+            ev = Evaluator(analyzed, domain, origins, arrays, scalars, ns="jax", ksweep=ksweep)
             out = ev.run()
+            served[:] = sorted(ev.kernels)
             return {n: out[n] for n in written}
 
-        return jax.jit(fn, donate_argnums=(0,))
-
-    def _build_nodonate(self, domain, origins_key):
-        import jax
-
-        origins = dict(origins_key)
-        analyzed = self.analyzed
-        written = self.written
-
-        def fn(written_arrays, read_arrays, scalars):
-            arrays = {**read_arrays, **written_arrays}
-            ev = Evaluator(analyzed, domain, origins, arrays, scalars, ns="jax")
-            out = ev.run()
-            return {n: out[n] for n in written}
-
-        return jax.jit(fn)
+        return jax.jit(fn, donate_argnums=(0,) if donate else ()), served
 
     accepts_cache_key = True
 
@@ -95,28 +94,30 @@ class JaxBackend(Backend):
         # so distinct user origin/domain spellings share one executable.
         fast_key = (cache_key, aliased) if cache_key is not None else None
         if fast_key is not None:
-            fn = self._fast_cache.get(fast_key)
-            if fn is not None:
-                return fn(written_arrays, read_arrays, scalars)
+            entry = self._fast_cache.get(fast_key)
+            if entry is not None:
+                return self._call(entry, written_arrays, read_arrays, scalars)
         origins_key = tuple(sorted(origins.items()))
         shapes_key = tuple(
             (name, tuple(a.shape), np.dtype(a.dtype))
             for name, a in sorted(arrays.items())
         )
         key = (domain, origins_key, shapes_key, aliased)
-        fn = self._cache.get(key)
-        if fn is None:
-            fn = (
-                self._build_nodonate(domain, origins_key)
-                if aliased
-                else self._build(domain, origins_key)
-            )
-            self._cache[key] = fn
+        entry = self._cache.get(key)
+        if entry is None:
+            entry = self._build(domain, origins_key, donate=not aliased)
+            self._cache[key] = entry
         if fast_key is not None:
             if len(self._fast_cache) >= 128:
                 self._fast_cache.clear()
-            self._fast_cache[fast_key] = fn
-        return fn(written_arrays, read_arrays, scalars)
+            self._fast_cache[fast_key] = entry
+        return self._call(entry, written_arrays, read_arrays, scalars)
+
+    def _call(self, entry, *args):
+        fn, served = entry
+        out = fn(*args)
+        self.last_kernel = served[0] if served else "xla"
+        return out
 
     def run_chained_from_infos(
         self, infos, scalars, domain, origins, n_steps, swap
@@ -164,9 +165,9 @@ class JaxBackend(Backend):
             tuple(sorted(swap.items())),
             aliased,
         )
-        runner = self._cache.get(key)
-        if runner is None:
-            step = self._build_nodonate(domain, origins_key)
+        entry = self._cache.get(key)
+        if entry is None:
+            step, served = self._build(domain, origins_key, donate=False)
 
             def one(state, const, sc):
                 full = {**const, **state}
@@ -187,11 +188,22 @@ class JaxBackend(Backend):
                     0, n % cycle, lambda i, st: one(st, const, sc), st
                 )
 
-            runner = jax.jit(run, donate_argnums=() if aliased else (1,))
-            self._cache[key] = runner
+            entry = jax.jit(run, donate_argnums=() if aliased else (1,)), served
+            self._cache[key] = entry
 
         state = {r: arrays[r] for r in dirty}
         const = {r: arrays[r] for r in consts}
-        out = runner(np.int32(n_steps), state, const, scalars)
-        self.last_strategy = "xla"
-        return dict(out)
+        return dict(self._call(entry, np.int32(n_steps), state, const, scalars))
+
+
+@register
+class GpuBackend(JaxBackend):
+    """The reference's ``gt:gpu`` role: the XLA path, with the
+    FORWARD/BACKWARD sections the K-sweep kernel accepts compiled by
+    Triton (in the Pallas interpreter when JAX runs on the CPU)."""
+
+    name = "gpu"
+
+    def __init__(self, analyzed, options):
+        super().__init__(analyzed, options)
+        self.ksweep = ksweep_triton.kernel_mode()

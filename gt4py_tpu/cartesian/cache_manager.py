@@ -2,16 +2,14 @@
 
 Counterpart of the reference's ``gt4py.cartesian.gt_cache_manager``:
 enumerate and clean the persistent cache tree (here GT_CACHE_ROOT holds
-the XLA executable cache, the Pallas block-size probe results, the native
-helper library, and any workflow-step caches).
+the XLA executable cache, the native helper library, and any workflow-step
+caches).
 """
 
 from __future__ import annotations
 
 import os
 import shutil
-from typing import Iterator
-
 from gt4py_tpu.cartesian.caching import GT_CACHE_ROOT
 
 
@@ -42,8 +40,8 @@ def cache_info(root: str | None = None) -> dict:
 
 
 def clean_cache(root: str | None = None, *, subsystem: str | None = None) -> None:
-    """Remove the cache tree (or one subsystem, e.g. ``pallas_tk``,
-    ``xla_cache``, ``native``)."""
+    """Remove the cache tree (or one subsystem, e.g. ``xla_cache``,
+    ``native``)."""
     root = root or GT_CACHE_ROOT
     if subsystem is not None:
         target = os.path.join(root, subsystem)
@@ -54,13 +52,3 @@ def clean_cache(root: str | None = None, *, subsystem: str | None = None) -> Non
         return
     if os.path.isdir(root):
         shutil.rmtree(root, ignore_errors=True)
-
-
-def iter_cached_stencils(root: str | None = None) -> Iterator[str]:
-    """Keys of cached Pallas plan probes (one per stencil+domain variant)."""
-    root = root or GT_CACHE_ROOT
-    tkdir = os.path.join(root, "pallas_tk")
-    if os.path.isdir(tkdir):
-        for name in sorted(os.listdir(tkdir)):
-            if name.endswith(".json"):
-                yield name[: -len(".json")]

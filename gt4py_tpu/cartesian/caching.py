@@ -5,8 +5,8 @@ Counterpart of the reference's ``JITCachingStrategy``
 hash of (definition source, backend, externals, dtypes, literal precisions,
 API version). The reference stores generated source trees under
 ``.gt_cache``; here the analog artifacts are XLA executables, which persist
-via JAX's own compilation cache — :func:`enable_persistent_cache` wires it
-to the same GT_CACHE_ROOT convention.
+via JAX's own compilation cache — :func:`enable_persistent_cache` turns it
+on.
 """
 
 from __future__ import annotations
@@ -17,9 +17,9 @@ import os
 import textwrap
 from typing import Callable
 
-API_VERSION = "1"
+from gt4py_tpu.config import CACHE_ROOT as GT_CACHE_ROOT
 
-GT_CACHE_ROOT = os.environ.get("GT_CACHE_ROOT", os.path.join(os.getcwd(), ".gt_cache"))
+API_VERSION = "1"
 
 
 def stencil_fingerprint(definition: Callable, build_options: dict) -> str:
@@ -49,17 +49,21 @@ _persistent_cache_enabled = False
 
 
 def enable_persistent_cache(path: str | None = None) -> None:
-    """Point JAX's persistent compilation cache at the gt cache root so
-    XLA executables survive process restarts (the reference's ``.gt_cache``
-    role, cartesian/caching.py:231)."""
+    """Turn on JAX's persistent compilation cache so XLA executables
+    survive process restarts (the reference's ``.gt_cache`` role,
+    cartesian/caching.py:231). Where ``JAX_COMPILATION_CACHE_DIR`` is set,
+    JAX already keeps the cache there and no directory is set here;
+    otherwise it goes to ``path`` or to ``xla_cache`` under the fixed
+    GT_CACHE_ROOT."""
     global _persistent_cache_enabled
     if _persistent_cache_enabled:
         return
     import jax
 
-    cache_dir = path or os.path.join(GT_CACHE_ROOT, "xla_cache")
-    os.makedirs(cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        cache_dir = path or os.path.join(GT_CACHE_ROOT, "xla_cache")
+        os.makedirs(cache_dir, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", cache_dir)
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
     _persistent_cache_enabled = True

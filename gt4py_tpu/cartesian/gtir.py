@@ -1,19 +1,21 @@
-"""GTIR — declarative stencil IR for the TPU-native cartesian DSL.
+"""GTIR — declarative stencil IR for the cartesian DSL.
 
 Single mid-level IR combining the roles of the reference's GTIR
 (/root/reference/src/gt4py/cartesian/gtc/gtir.py) and OIR
 (/root/reference/src/gt4py/cartesian/gtc/oir.py). The reference needs two
 IRs because its backends emit imperative C++/CUDA loop nests (OIR models
 loops, caches and masks explicitly); here every backend lowers to
-JAX/XLA/Pallas where scheduling (fusion, loop structure, on-chip residency)
+JAX/XLA (and the K-sweep kernel) where scheduling (fusion, loop structure,
+register residency)
 is carried by annotations on this IR plus the compiler:
 
 - per-statement ``Extent`` annotations (computed by
   ``passes/extents.py``) replace OIR's HorizontalExecution extents,
 - FieldIf/While stay structured (vector backends lower them to masked
   selects; reference lowers them to OIR MaskStmt),
-- IJ/K cache detection (reference oir_optimizations/caches.py) maps to
-  VMEM block residency in the Pallas backend.
+- K cache detection (reference oir_optimizations/caches.py) maps to the
+  plane carries of sequential sections (evaluator.py), which the K-sweep
+  kernel keeps in registers.
 
 Semantics follow the GTScript language spec
 (/root/reference/docs/user/cartesian/lang_design.rst): statements inside a

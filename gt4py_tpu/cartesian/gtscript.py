@@ -1,4 +1,4 @@
-"""GTScript DSL vocabulary and entry points (TPU-native).
+"""GTScript DSL vocabulary and entry points.
 
 Behavioral counterpart of the reference's ``gt4py.cartesian.gtscript``
 (/root/reference/src/gt4py/cartesian/gtscript.py): axes ``I/J/K``, the
@@ -6,9 +6,9 @@ Behavioral counterpart of the reference's ``gt4py.cartesian.gtscript``
 ``horizontal``/``region`` context constructs, the math builtins, the
 ``@function`` helper and the ``stencil`` decorator.
 
-Differences by design (TPU-first):
+Differences by design:
 
-- backends are JAX/XLA/Pallas based (``"debug"``, ``"jax"``, ``"tpu:pallas"``)
+- backends are JAX based (``"debug"``, ``"numpy"``, ``"jax"``, ``"gpu"``)
   instead of generated C++/CUDA extension modules;
 - math builtins are *callable* on NumPy/JAX arrays outside stencils, so the
   same definition function doubles as a NumPy/JAX reference implementation.
@@ -489,8 +489,9 @@ def stencil(
 
     Supported backends: ``"debug"`` (Python-loop interpreter, oracle),
     ``"numpy"``/``"jax"`` (vectorized jax.numpy under jit — the reference's
-    ``numpy`` backend, but XLA-compiled), ``"tpu:pallas"`` (fused Pallas TPU
-    kernels, counterpart of the reference's ``gt:gpu``).
+    ``numpy`` backend, but XLA-compiled), ``"gpu"`` (the XLA path plus the
+    Pallas-Triton K-sweep kernel for vertical solvers, counterpart of the
+    reference's ``gt:gpu``).
     """
     from gt4py_tpu.cartesian import loader
 

@@ -7,7 +7,7 @@ program order, accumulating
 
 - per-statement horizontal extents (how far beyond the compute domain each
   parallel assignment must execute so later offset reads of its target are
-  valid — this drives temporary-domain extension and Pallas halo tiles),
+  valid — this drives temporary-domain extension),
 - per-field accumulated extents, whose boundary is the halo each API field
   must provide (used by runtime arg validation) and the padding temporaries
   are allocated with.

@@ -5,11 +5,9 @@ Counterpart of the reference's ``OnTheFlyMerging`` OIR pass
 horizontal_execution_merging.py:135): a temporary that is written once per
 program point by an unmasked parallel assignment can be *recomputed* at its
 read sites — substituting the defining expression shifted by the read offset
-— instead of being materialized. On TPU this is the decisive optimization:
-
-- XLA path: statements collapse into single fused kernels (no HBM
-  round-trips for temporaries; XLA CSEs the overlapping shifted reads),
-- Pallas path: fewer VMEM blocks → larger tiles → less DMA over-fetch.
+— instead of being materialized. On the XLA path statements then collapse
+into single fused kernels (no device-memory round-trips for temporaries;
+XLA CSEs the overlapping shifted reads).
 
 Safety rules (same-section scope):
 - only defs from unmasked, region-free, data-index-free assignments whose
@@ -34,10 +32,8 @@ _SIZE_CAP = 256
 # Max recompute volume per def: (forward reads served by the def) x
 # (FieldAccess count of the defining expression). Multi-use temporaries
 # with non-trivial defs (e.g. hdiff's laplacian, read at 4 shifted points:
-# 4 reads x 5 accesses = 20 > cap) stay materialized — in the Pallas plane
-# kernel they become one VMEM scratch plane computed once, which both
-# avoids recompute and keeps the per-statement expression trees small
-# enough for Mosaic; hdiff's res/flx/fly (2 reads x <=6 accesses) inline.
+# 4 reads x 5 accesses = 20 > cap) stay materialized; hdiff's res/flx/fly
+# (2 reads x <=6 accesses) inline.
 _EXPANSION_CAP = 12
 
 
@@ -100,12 +96,7 @@ def inline_temporaries(
 
     ``expansion_cap`` bounds recompute per def: forward reads x defining
     expression's access count. Single-forward-read defs always inline (no
-    recompute is introduced). The value-based Pallas plane evaluators use a
-    smaller cap than the default: they hold temporaries as VMEM values, so
-    a multi-read temporary with a non-trivial def (hdiff's flux limiters)
-    is cheaper computed once and sliced than recomputed per shifted read
-    (measured ~15% of the whole kernel), while trivial defs (a 2-access
-    difference) still inline."""
+    recompute is introduced)."""
     if expansion_cap is None:
         expansion_cap = _EXPANSION_CAP
     temps = {t.name for t in stencil.temporaries}

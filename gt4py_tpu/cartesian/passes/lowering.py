@@ -6,7 +6,8 @@ Counterpart of the reference's GTIR→OIR mask lowering
 and MaskStmt creation): after this pass every vertical-section body contains
 only ``Assign`` (possibly with ``mask``/``horizontal_masks``) and ``While``
 units, which the vector backends execute as masked full-domain updates — the
-natural shape for XLA/Pallas (predication instead of divergent control flow).
+natural shape for XLA and Triton (predication instead of divergent control
+flow).
 
 Semantics (reference lang_design.rst:199-296): the condition is evaluated
 *before* the branch bodies run; body statements execute in order as masked

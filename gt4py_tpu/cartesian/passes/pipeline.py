@@ -4,9 +4,9 @@ Counterpart of the reference's ``GtirPipeline`` + ``OirPipeline``
 (/root/reference/src/gt4py/cartesian/gtc/passes/gtir_pipeline.py:24,
 oir_pipeline.py:40). The reference's OIR optimization passes (horizontal
 execution merging, on-the-fly merging, temporaries-to-scalars, IJ/K cache
-detection) exist to schedule generated C++/CUDA loop nests; on TPU those jobs
-belong to XLA (fusion, scalar promotion) and the Pallas backend (VMEM
-residency), so the pipeline here is: definitive assignment → control-flow
+detection) exist to schedule generated C++/CUDA loop nests; here those jobs
+belong to XLA (fusion, scalar promotion) and the K-sweep kernel (register
+carries), so the pipeline here is: definitive assignment → control-flow
 lowering → dtype inference → extent analysis → runtime metadata.
 """
 
@@ -45,13 +45,6 @@ class AnalyzedStencil:
     field_infos: dict[str, FieldInfo]
     parameter_infos: dict[str, ParameterInfo]
     domain_info: DomainInfo
-    #: the lowered stencil BEFORE temporary inlining (for backends that
-    #: prefer materialized temporaries over recompute, e.g. the value-based
-    #: Pallas plane kernels); None when inlining was disabled anyway.
-    pre_inline_stencil: "gtir.Stencil | None" = None
-    _materialized: "AnalyzedStencil | None" = dataclasses.field(
-        default=None, repr=False, compare=False
-    )
 
     @property
     def name(self) -> str:
@@ -65,31 +58,6 @@ class AnalyzedStencil:
             if info.access & AccessKind.WRITE
         ]
 
-    def materialized_variant(self) -> "AnalyzedStencil":
-        """This analysis re-done with a small recompute cap: non-trivial
-        multi-read temporaries stay materialized (computed once) instead of
-        being recomputed per shifted read site. Field halo demands of this
-        variant are a subset of the primary's, so arrays validated against
-        the primary are always sufficient."""
-        if self._materialized is not None:
-            return self._materialized
-        if self.pre_inline_stencil is None:
-            self._materialized = self
-            return self
-        from gt4py_tpu.cartesian.passes.inline_temporaries import inline_temporaries
-
-        stencil = inline_temporaries(self.pre_inline_stencil, expansion_cap=6)
-        extents = ExtentAnalysis(stencil)
-        self._materialized = AnalyzedStencil(
-            stencil=stencil,
-            stmt_extents=extents.stmt_extents,
-            field_extents=extents.field_extents,
-            field_infos=self.field_infos,
-            parameter_infos=self.parameter_infos,
-            domain_info=self.domain_info,
-        )
-        return self._materialized
-
 
 def _step_lower_control_flow(stencil: gtir.Stencil) -> gtir.Stencil:
     return lower_control_flow(stencil)
@@ -97,8 +65,7 @@ def _step_lower_control_flow(stencil: gtir.Stencil) -> gtir.Stencil:
 
 def _step_vector_unroll(stencil: gtir.Stencil) -> gtir.Stencil:
     # Whole-vector / matmul data-dimension assignments unroll into
-    # per-component scalar assignments (reference defir_to_gtir.py:123,195)
-    # — the native form for the Pallas per-stream kernels.
+    # per-component scalar assignments (reference defir_to_gtir.py:123,195).
     from gt4py_tpu.cartesian.passes.vector_unroll import unroll_vector_assignments
 
     return unroll_vector_assignments(stencil)
@@ -202,17 +169,11 @@ class PassPipeline:
     def __repr__(self) -> str:
         return f"PassPipeline({[n for n, _ in self.steps]})"
 
-    def run(self, stencil: gtir.Stencil) -> "tuple[gtir.Stencil, gtir.Stencil | None]":
-        """Apply the steps in order; returns ``(stencil, pre_inline)`` where
-        ``pre_inline`` is the stencil just before temporary inlining (the
-        materialized-temporaries variant used by value-based backends), or
-        None when inlining is skipped."""
-        pre_inline: "gtir.Stencil | None" = None
-        for name, step in self.steps:
-            if name == "inline_temporaries":
-                pre_inline = stencil
+    def run(self, stencil: gtir.Stencil) -> gtir.Stencil:
+        """Apply the steps in order."""
+        for _, step in self.steps:
             stencil = step(stencil)
-        return stencil, pre_inline
+        return stencil
 
 
 def _step_check_definitive_assignment(stencil: gtir.Stencil) -> gtir.Stencil:
@@ -245,7 +206,7 @@ def _pipeline_from_options(options: dict) -> PassPipeline:
 def analyze_gtir(stencil: "gtir.Stencil", options: dict) -> AnalyzedStencil:
     """Run the analysis pipeline on an already-built GTIR stencil (used by
     the field-view cartesian bridge, next/cartesian_bridge.py)."""
-    stencil, pre_inline = _pipeline_from_options(options).run(stencil)
+    stencil = _pipeline_from_options(options).run(stencil)
     extents = ExtentAnalysis(stencil)
 
     access: dict[str, AccessKind] = {p.name: AccessKind.NONE for p in stencil.params}
@@ -293,7 +254,6 @@ def analyze_gtir(stencil: "gtir.Stencil", options: dict) -> AnalyzedStencil:
         field_infos=field_infos,
         parameter_infos=parameter_infos,
         domain_info=domain_info,
-        pre_inline_stencil=pre_inline,
     )
 
 

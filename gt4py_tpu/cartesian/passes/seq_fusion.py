@@ -6,9 +6,9 @@ vertical_loop_merging.py:1, horizontal_execution_merging.py:135) for the
 PARALLEL→FORWARD/BACKWARD boundary: a temporary written by a PARALLEL
 loop and read only inside ONE sequential loop at zero offset is computed
 per level inside that loop instead — the kernel then streams the inputs
-once and keeps the coefficient values in registers/VMEM planes, instead
-of materializing full-size temporaries between grid sweeps (each extra
-sweep costs a full HBM round trip).
+once and keeps the coefficient values in registers, instead of
+materializing full-size temporaries between grid sweeps (each extra sweep
+costs a full device-memory round trip).
 
 This is the pass that makes a field-view vadv written with
 ``concat_where`` boundary sections compile into the SAME 3-section

@@ -7,13 +7,11 @@ an assignment whose target has UNINDEXED trailing data dimensions —
 unrolls into one scalar assignment per component with literal data
 indices. ``@`` contracts explicitly (``Σ_k mat[c, k] * vec[k]``).
 
-The vector backends can execute whole-vector assignments directly (the
-evaluator broadcasts over trailing dims), but the Pallas kernels carry
-data-dimension fields as one stream per flat index — unrolled scalar
-assignments are exactly their native form, so this pass is what moves the
-``vector_axpy``/``matvec_product`` class off the XLA fallback. Unrolling
-is capped (``_MAX_COMPONENTS``) to avoid code explosion; capped
-statements keep the whole-vector form (and its evaluator path).
+The evaluator can execute whole-vector assignments directly (it
+broadcasts over trailing dims); the unrolled form gives every backend the
+same scalar statements. Unrolling is capped (``_MAX_COMPONENTS``) to avoid
+code explosion; capped statements keep the whole-vector form (and its
+evaluator path).
 """
 
 from __future__ import annotations

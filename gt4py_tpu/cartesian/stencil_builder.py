@@ -8,7 +8,7 @@ thread — frontend parse + analysis pipeline (cached per builder), backend
 instantiation, StencilObject assembly — and records build phases in a
 crash-consistent persistent *build-data* record (FileCache keyed by the
 stencil fingerprint), so tooling can ask "what was built, when, through
-which kernel strategy" without rebuilding.
+which backend" without rebuilding.
 
 ``loader.load_stencil`` is a thin veneer over this class; use the builder
 directly for staged builds (syntax-check only, inspect the analyzed IR,
@@ -41,7 +41,7 @@ class StencilBuilder:
 
         obj = (
             StencilBuilder(defn)
-            .with_backend("tpu:pallas")
+            .with_backend("gpu")
             .with_externals({"K": 3})
             .build()
         )
@@ -141,7 +141,7 @@ class StencilBuilder:
             "parse_time": parse_time,
             "module_time": module_time,
             "built_at": time.time(),
-            # Backend-contributed artifacts (e.g. kernel strategy chosen).
+            # Backend-contributed artifacts (``with_backend_data``).
             "backend_data": {
                 k: v
                 for k, v in self.backend_data.items()
@@ -183,11 +183,7 @@ class StencilBuilder:
         analyzed = self.gtir
         parse_done = time.perf_counter()
 
-        backend = self.backend_obj
-        strategy = getattr(backend, "last_strategy", None)
-        if strategy is not None:
-            self.with_backend_data(kernel_strategy=strategy)
-        obj = StencilObject(analyzed, backend, self.options, self.definition)
+        obj = StencilObject(analyzed, self.backend_obj, self.options, self.definition)
         module_done = time.perf_counter()
 
         if build_info is not None:

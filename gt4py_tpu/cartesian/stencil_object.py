@@ -4,7 +4,7 @@ Counterpart of the reference's ``StencilObject``
 (/root/reference/src/gt4py/cartesian/stencil_object.py:146): argument
 binding, origin normalization (:489), max-domain computation (:288),
 validation (:334), the domain/origin call cache (:568-582) and ``freeze()``
-(:596). The execution step dispatches to a TPU/JAX backend instead of a
+(:596). The execution step dispatches to a JAX backend instead of a
 generated extension module; written fields are rebound on the passed
 storages (JAX arrays are immutable, see storage/storage.py).
 """
@@ -24,9 +24,7 @@ from gt4py_tpu.storage.storage import Storage
 
 
 class ArgsInfo:
-    """Per-argument call info. ``array`` is LAZY for storages so that a
-    backend holding a valid native-layout cache never forces the public
-    (I, J, K) view to be decoded (storage.py native cache)."""
+    """Per-argument call info; ``array`` reads a storage's array lazily."""
 
     __slots__ = ("original", "origin", "dimensions")
 
@@ -449,28 +447,18 @@ class StencilObject:
                 )
         if exec_info is not None:
             exec_info["run_end_time"] = time.perf_counter()
-            strategy = getattr(self._backend, "last_strategy", None)
-            if strategy is not None:
-                exec_info["pallas_strategy"] = strategy
+            kernel = getattr(self._backend, "last_kernel", None)
+            if kernel is not None:
+                exec_info["kernel"] = kernel
 
         self._write_back(results, used_infos)
 
     def _write_back(self, results, used_infos) -> None:
         """Rebind written results on the passed objects."""
-        from gt4py_tpu.cartesian.backend.base import NativeResult
-
         for name, new_array in results.items():
             info = used_infos[name]
             original = info.original
-            if isinstance(new_array, NativeResult):
-                # Still in backend-native layout: cache it on the storage;
-                # the public view decodes lazily on first host access.
-                assert isinstance(original, Storage)
-                original.native_set(
-                    new_array.key, new_array.native, new_array.decode,
-                    stale_public=True,
-                )
-            elif isinstance(original, Storage):
+            if isinstance(original, Storage):
                 import jax.numpy as jnp
 
                 original.array = (
@@ -519,8 +507,8 @@ class StencilObject:
         """Run ``n_steps`` applications as ONE on-device executable with
         buffer rotation between steps — the time-stepping loop a model
         driver would otherwise write in Python, without the per-call
-        dispatch overhead (~50 us/call warm; the chained per-step overhead
-        is effectively zero since the loop is a compiled ``fori_loop``).
+        dispatch overhead (the loop is a compiled ``fori_loop``; PERF.md
+        compares a call with a chain step).
 
         ``swap`` maps each field role to the role whose buffer serves it
         in the NEXT step: ``swap={"in_field": "out_field", "out_field":
@@ -537,7 +525,7 @@ class StencilObject:
                 fields = {r: fields[swap.get(r, r)] for r in fields}
 
         After the chain, every passed storage holds the final content of
-        its role (written back; kernel-native layouts decode lazily).
+        its role.
         Scalar parameters are fixed across steps. Reference analog:
         ``FrozenStencil`` (stencil_object.py:95) removes validation from
         each call; ``chain`` removes the calls themselves."""
@@ -626,20 +614,18 @@ class StencilObject:
         )
         if exec_info is not None:
             exec_info["run_end_time"] = time.perf_counter()
-            strategy = getattr(self._backend, "last_strategy", None)
-            if strategy is not None:
-                exec_info["pallas_strategy"] = strategy
+            kernel = getattr(self._backend, "last_kernel", None)
+            if kernel is not None:
+                exec_info["kernel"] = kernel
         self._write_back(results, used_infos)
         if exec_info is not None:
             exec_info["call_run_end_time"] = time.perf_counter()
 
     def precompile(self, *, domain, origin=None, wait: bool = False) -> None:
         """Warm the kernel path for a concrete (domain, origin) in a
-        background thread: strategy probing (the dominant cold-start cost
-        on hardware — its outcome lands in the persistent probe caches)
-        plus a full build + compile of the selected kernels, exercised by
-        one call on zero-filled placeholder fields so the exact executable
-        the first real call dispatches is already cached.
+        background thread: a full build + compile, exercised by one call on
+        zero-filled placeholder fields so the exact executable the first
+        real call dispatches is already cached.
 
         Reference analog: asynchronous worker builds
         (otf/compilation_tasks.py:136) and the next-side AOT

@@ -8,7 +8,8 @@ read once at import; tests may monkeypatch module attributes directly.
 
 Environment variables honored (reference names kept where meaningful):
 
-- ``GT_CACHE_ROOT``           cache root directory (default ``./.gt_cache``)
+- ``GT_CACHE_ROOT``           cache root directory (default ``.gt_cache`` beside
+                              the package, whatever the working directory)
 - ``GT_CACHE_DIR_NAME``       subdirectory name for per-project caches
 - ``GT4PY_DEBUG``             verbose exceptions + debug artifacts
 - ``GT4PY_VERBOSE_EXCEPTIONS``
@@ -16,9 +17,10 @@ Environment variables honored (reference names kept where meaningful):
 - ``GT4PY_BUILD_CACHE_LIFETIME``  ``session`` | ``persistent``
 - ``GT4PY_COLLECT_METRICS_LEVEL`` (instrumentation/metrics.py)
 - ``GT4PY_DUMP_METRICS_AT_EXIT``
-- ``GT4PY_ADD_TPU_TRACE_MARKERS`` (instrumentation/profiler.py)
-- ``GT4PY_PALLAS``            set to ``0`` to disable the Pallas backend
-                              globally (XLA path fallback)
+- ``GT4PY_ADD_GPU_TRACE_MARKERS`` (instrumentation/profiler.py)
+- ``JAX_COMPILATION_CACHE_DIR``  read by JAX itself; when set, the
+                              persistent compile cache lives there
+                              (cartesian/caching.py)
 """
 
 from __future__ import annotations
@@ -68,11 +70,13 @@ VERBOSE_EXCEPTIONS: bool = env_flag_to_bool("GT4PY_VERBOSE_EXCEPTIONS", DEBUG)
 #: Default JIT enablement for field operators without explicit backend.
 ENABLE_JIT: bool = env_flag_to_bool("GT4PY_JIT", True)
 
-#: Use the Pallas kernel path when the backend supports it.
-USE_PALLAS: bool = env_flag_to_bool("GT4PY_PALLAS", True)
-
-#: Root of all persistent caches (reference GT_CACHE_ROOT, cartesian/config.py:83).
-CACHE_ROOT: str = os.environ.get("GT_CACHE_ROOT", os.path.join(os.getcwd(), ".gt_cache"))
+#: Root of all persistent caches (reference GT_CACHE_ROOT, cartesian/config.py:83):
+#: a fixed path beside the package, so every process of a checkout finds the
+#: same caches whatever its working directory.
+CACHE_ROOT: str = os.environ.get(
+    "GT_CACHE_ROOT",
+    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".gt_cache"),
+)
 
 #: Per-project cache directory name (reference GT_CACHE_DIR_NAME).
 CACHE_DIR_NAME: str = os.environ.get("GT_CACHE_DIR_NAME", "gt4py_tpu")

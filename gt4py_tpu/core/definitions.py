@@ -1,9 +1,9 @@
 """Core dtype/device definitions.
 
-TPU-native equivalent of the reference's ``gt4py._core.definitions``
+Equivalent of the reference's ``gt4py._core.definitions``
 (/root/reference/src/gt4py/_core/definitions.py:146,198,388): a dtype model
 bridging NumPy and JAX dtypes and a device model where the accelerator is a
-TPU chip addressed through JAX rather than a CUDA/ROCm device.
+CUDA GPU addressed through JAX.
 """
 
 from __future__ import annotations
@@ -19,9 +19,9 @@ import numpy as np
 LITERAL_INT_PRECISION = 64
 LITERAL_FLOAT_PRECISION = 64
 
-# Half-precision float dtypes, first-class on TPU (bfloat16 is the MXU/VPU
-# native narrow float; the reference has no half-precision story — this is
-# a TPU-build extension). bfloat16 comes from ml_dtypes (the package NumPy
+# Half-precision float dtypes (bfloat16 and float16; the reference has no
+# half-precision story — this is an extension). bfloat16 comes from
+# ml_dtypes (the package NumPy
 # and JAX share for non-standard dtypes); note its np.dtype.kind is 'V',
 # so float-ness must be queried via these sets, never via kind == 'f'.
 import ml_dtypes as _ml_dtypes  # noqa: E402
@@ -43,10 +43,10 @@ def is_float_dtype(dtype: Any) -> bool:
 
 class DeviceType(enum.Enum):
     """Execution device (reference: _core/definitions.py:388 — CPU/CUDA/ROCM;
-    here the accelerator is a TPU)."""
+    here the accelerator is a CUDA GPU)."""
 
     CPU = "cpu"
-    TPU = "tpu"
+    CUDA = "gpu"
 
 
 class DType:

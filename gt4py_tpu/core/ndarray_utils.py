@@ -3,10 +3,9 @@
 Counterpart of the reference's ``gt4py._core.ndarray_utils``
 (/root/reference/src/gt4py/_core/ndarray_utils.py): resolve the array
 namespace for a given array object, convert between host and device
-representations, and provide namespace-generic slicing helpers. The
-TPU build has two namespaces — NumPy (eager oracles) and jax.numpy
-(traced/compiled) — plus the kernel-internal Pallas paths that bypass
-this module entirely.
+representations, and provide namespace-generic slicing helpers. There
+are two namespaces — NumPy (eager oracles) and jax.numpy
+(traced/compiled).
 
 ``gt4py_tpu.cartesian.backend.evaluator._NamespaceOps`` builds on these
 helpers for the stencil evaluator's windowed access patterns, and

@@ -1,9 +1,9 @@
 """gt4py_tpu.eve — lean IR-node framework.
 
-TPU-native re-design of the reference's ``gt4py.eve`` package
+Re-design of the reference's ``gt4py.eve`` package
 (/root/reference/src/gt4py/eve/). The reference builds IR nodes on
 attrs-based "datamodels" with runtime type validation and a templated C++
-code generator; here codegen targets JAX/Pallas Python callables, so the
+code generator; here codegen targets JAX Python callables, so the
 node kit is a small dataclass + visitor toolkit:
 
 - :mod:`concepts` — ``Node``, ``SourceLocation``, ``SymbolName``/``SymbolRef``,
@@ -20,7 +20,7 @@ node kit is a small dataclass + visitor toolkit:
 
 There is no TemplatedGenerator equivalent: the reference generates C++
 source from IR templates (eve/codegen.py:563); here the backends *trace*
-the IR into JAX programs and XLA/Mosaic is the code generator.
+the IR into JAX programs and XLA (or Triton) is the code generator.
 """
 
 from gt4py_tpu.eve.concepts import (

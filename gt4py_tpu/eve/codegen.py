@@ -177,7 +177,7 @@ class TemplatedGenerator(NodeVisitor):
 def format_source(language: str, source: str, *, line_length: int = 88) -> str:
     """Format generated source (reference codegen.py:171). Python goes
     through black when importable; other languages get whitespace
-    normalization only (no clang-format dependency on TPU hosts)."""
+    normalization only (no clang-format dependency)."""
     if language == "python":
         try:
             import black

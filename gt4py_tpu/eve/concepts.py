@@ -1,9 +1,9 @@
 """IR-node base classes and source locations.
 
-TPU-native re-design of the reference's ``gt4py.eve.concepts``
+Re-design of the reference's ``gt4py.eve.concepts``
 (/root/reference/src/gt4py/eve/concepts.py:39-230). The reference builds
 nodes on attrs-based "datamodels" with runtime type validation; here codegen
-targets JAX/Pallas callables traced from the IR, so nodes are plain
+targets JAX callables traced from the IR, so nodes are plain
 dataclasses with structural equality and an out-of-band ``annex`` for
 analysis results that must survive tree rewrites (reference AnnexManager,
 concepts.py:226).

@@ -13,4 +13,4 @@ from gt4py_tpu.instrumentation.hooks import (  # noqa: F401
     register_context_hook,
     register_event_hook,
 )
-from gt4py_tpu.instrumentation.profiler import tpu_trace, named_scope  # noqa: F401
+from gt4py_tpu.instrumentation.profiler import gpu_trace, named_scope  # noqa: F401

@@ -1,6 +1,6 @@
 """gt4py_tpu.next — declarative field-view DSL on JAX.
 
-TPU-native counterpart of ``gt4py.next`` (reference
+Counterpart of ``gt4py.next`` (reference
 /root/reference/src/gt4py/next/): Dimension/Domain/Field model,
 @field_operator / @scan_operator / @program entry points, neighbor
 reductions over connectivities. The embedded JAX execution path is primary

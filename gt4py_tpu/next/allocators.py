@@ -3,8 +3,8 @@
 Counterpart of the reference's ``gt4py.next.custom_layout_allocators``
 (/root/reference/src/gt4py/next/custom_layout_allocators.py:35,191,236):
 an allocator protocol deciding device placement and layout for new field
-buffers. On TPU, physical layout belongs to XLA; what an allocator decides
-is the *device* (CPU host vs TPU HBM, or a specific device in a
+buffers. Physical layout on the device belongs to XLA; what an allocator
+decides is the *device* (CPU host vs GPU memory, or a specific device in a
 multi-process setup) and the sharding for distributed fields.
 """
 
@@ -38,8 +38,8 @@ class CPUFieldBufferAllocator:
         return arr
 
 
-class TPUFieldBufferAllocator:
-    """HBM-resident jax.Array buffers (role of the reference's CUDA
+class DeviceFieldBufferAllocator:
+    """Device-resident jax.Array buffers (role of the reference's CUDA
     allocator, :236). Optionally places on a specific device or with a
     NamedSharding for distributed fields."""
 
@@ -59,12 +59,13 @@ class TPUFieldBufferAllocator:
 
 
 def device_allocator(device: Any = None, sharding: Any = None):
-    """Allocator for a device spec: None -> default TPU/accelerator;
+    """Allocator for a device spec: None -> JAX's default device (the GPU);
     'cpu' -> host buffers."""
     if device == "cpu":
         return CPUFieldBufferAllocator()
-    return TPUFieldBufferAllocator(device=None if device in (None, "tpu") else device,
-                                   sharding=sharding)
+    return DeviceFieldBufferAllocator(
+        device=None if device in (None, "gpu") else device, sharding=sharding
+    )
 
 
-DEFAULT_ALLOCATOR = TPUFieldBufferAllocator()
+DEFAULT_ALLOCATOR = DeviceFieldBufferAllocator()

@@ -5,7 +5,7 @@ Role of the reference's ``gt4py.next.backend``
 a *transforms* workflow (DSL → typed stages → executable; reference
 ``Transforms`` MultiWorkflow: func_to_foast → foast_to_past → past lint →
 args transform → past_to_itir) with an executor, and programs carry a
-Backend object — not just a string. Here the stages are the TPU toolchain
+Backend object — not just a string. Here the stages are the JAX toolchain
 (:mod:`gt4py_tpu.next.stages`): validate → deduce → specialize →
 [trace → lower] → compile, where the default ``compile`` step produces a
 lazy ``jax.jit`` callable (tracing happens on first call, XLA sees the
@@ -15,7 +15,7 @@ trace/lower/compile chain, exposing every intermediate artifact.
 The pipeline is user-controllable (the reference's Transforms-replacement
 idiom): ``Backend.replace(transforms=backend.transforms.replace(...))``
 swaps any step, and ``program_transforms`` is a hook for function→function
-rewrites applied before jit — TPU-idiomatic transforms like
+rewrites applied before jit — JAX-idiomatic transforms like
 ``jax.checkpoint`` (rematerialization) or custom sharding wrappers.
 
 Decorators accept either a registered name (``backend="jax"``) or a
@@ -169,7 +169,7 @@ def _compile_aot(job: CompileJob) -> CompileJob:
 
 @dataclasses.dataclass(frozen=True)
 class Transforms(NamedStepSequence):
-    """The TPU Transforms multiworkflow (reference backend.py:98-137).
+    """The Transforms multiworkflow (reference backend.py:98-137).
     Fields execute in order; None steps are skipped. Customize with
     ``replace``: e.g. ``transforms.replace(program_transforms=
     _ProgramTransforms((jax.checkpoint,)))`` for rematerialization."""
@@ -195,7 +195,7 @@ class Backend:
     executable for the jax-compiled kinds."""
 
     name: str
-    kind: str  # 'jax' | 'numpy' | 'pallas' | 'eager'
+    kind: str  # 'jax' | 'numpy' | 'gpu' | 'eager'
     transforms: Transforms = dataclasses.field(default_factory=Transforms)
 
     def make_executable(
@@ -251,7 +251,7 @@ register(
     )
 )
 register(Backend(name="numpy", kind="numpy", transforms=Transforms(compile=None)))
-register(Backend(name="tpu:pallas", kind="pallas"))
+register(Backend(name="gpu", kind="gpu"))
 register(Backend(name="embedded", kind="eager", transforms=Transforms(compile=None)))
 
 
@@ -270,7 +270,7 @@ def resolve(backend: Union[str, Backend, None]) -> Optional[Backend]:
 
 def backend_kind(backend: Union[str, Backend, None]) -> Optional[str]:
     """The runtime-dispatch kind of a backend spec ('jax', 'numpy',
-    'pallas', 'eager') or None for eager execution."""
+    'gpu', 'eager') or None for eager execution."""
     if backend is None:
         return None
     if isinstance(backend, Backend):

@@ -6,17 +6,14 @@ structured I/J/K subset) is symbolically traced into cartesian GTIR — the
 definition runs once on :class:`SymNode` placeholders that record the
 expression DAG; shifted composite subexpressions become GTIR temporaries
 (exactly hdiff's ``lap``) — and then executes through the registered
-cartesian backends (``tpu:pallas``: split/plane/staged/tiled Pallas
-kernels; ``jax``: the fused XLA evaluator).
+cartesian backends (``gpu``: XLA plus the K-sweep kernel for scans;
+``jax``: the fused XLA evaluator).
 
 Reference correspondence: this plays the role of
 foast_to_gtir lowering (/root/reference/src/gt4py/next/ffront/
 foast_to_gtir.py:70) for the cartesian subset, with tracing instead of an
 AST pipeline. Unstructured offsets (connectivity tables), neighbor
 reductions, scans and tuple returns stay on the embedded JAX path.
-
-Measured (v5e, hdiff 256x256x80 f32): embedded-XLA ~1100 us/step -> via
-this bridge the cartesian Pallas time (~105 us/step).
 """
 
 from __future__ import annotations
@@ -126,8 +123,8 @@ class _Tracer:
         stencil executions). The result is a temporary assigned ``a`` on
         the satisfying sub-interval(s) and ``b`` elsewhere — specialized
         straight-line sections instead of per-point masks, which is what
-        lets vadv-style boundary coefficients ride the staged Pallas
-        kernels at cartesian parity."""
+        lets vadv-style boundary coefficients ride the K-sweep kernel at
+        cartesian parity."""
         axis = self.dim_axis.get(cond.dim)
         if axis != 2:
             raise BridgeUnsupported(
@@ -276,8 +273,8 @@ class _Tracer:
         two-section sequential vertical loop and return symbolic reads of
         its output temp field(s). This is the fusion point that lets scan
         compositions (tridiagonal solves, vadv) compile into ONE cartesian
-        stencil whose cross-loop temporaries ride VMEM in the staged
-        Pallas kernel (reference analog: lift inlining into gtfn
+        stencil whose cross-loop temporaries ride registers in the K-sweep
+        kernel (reference analog: lift inlining into gtfn
         ScanExecution, codegens/gtfn/itir_to_gtfn_ir.py)."""
         import jax
 
@@ -814,8 +811,8 @@ def build_scan_variant(
     backend_name: str,
     gtir_transform: Optional[Callable] = None,
 ) -> BridgeVariant:
-    """Lower a ``scan_operator`` onto the cartesian sequential-K kernels
-    (the staged Pallas substrate that serves FORWARD/BACKWARD stencils).
+    """Lower a ``scan_operator`` onto the cartesian sequential-K path (the
+    K-sweep kernel that serves FORWARD/BACKWARD stencils on ``gpu``).
 
     The per-level definition ``f(carry, *args) -> carry`` is traced twice on
     :class:`SymNode` placeholders: once with the init value (the first-level

@@ -1,6 +1,6 @@
 """Field-view core model: dimensions, ranges, domains, connectivities.
 
-TPU-native counterpart of the reference's ``gt4py.next.common``
+Counterpart of the reference's ``gt4py.next.common``
 (/root/reference/src/gt4py/next/common.py:79,197,433,749,991): the same
 concepts — ``Dimension`` (HORIZONTAL/VERTICAL/LOCAL), ``UnitRange``,
 ``Domain``, ``Field``, ``Connectivity`` — with the single concrete field

@@ -515,9 +515,9 @@ class FieldOperator:
                     result = self.definition(*np_args, **np_kwargs)
                     _write_out(result, out, dom)
                     return
-                if kind == "pallas":
+                if kind == "gpu":
                     # Structured (cartesian-offset) operators execute on the
-                    # cartesian Pallas kernel substrate (SURVEY §7 step 8);
+                    # cartesian ``gpu`` backend (SURVEY §7 step 8);
                     # unstructured signatures fall through to embedded.
                     from gt4py_tpu.next.cartesian_bridge import try_call
 
@@ -662,7 +662,7 @@ class ScanOperator:
     ):
         # Called on symbolic values inside a cartesian-bridge trace: inline
         # as a sequential vertical loop of the enclosing stencil (the
-        # composition fusion that keeps scan temporaries in VMEM).
+        # composition fusion that keeps scan temporaries in registers).
         symbolic = [
             a
             for a in (*args, *kwargs.values())
@@ -696,14 +696,14 @@ class ScanOperator:
             dom = make_domain(domain) if domain is not None else None
         kind = backend_kind(self.backend)
         if (
-            kind == "pallas"
+            kind == "gpu"
             and out is not None
             and dom is None
             and not _under_trace(args, out, kwargs)
         ):
-            # Structured scans lower onto the cartesian staged Pallas
-            # kernels (the substrate that serves GTScript FORWARD/BACKWARD
-            # loops); unsupported shapes fall through to embedded.
+            # Structured scans lower onto the cartesian K-sweep kernel (the
+            # one that serves GTScript FORWARD/BACKWARD loops); unsupported
+            # shapes fall through to embedded.
             from gt4py_tpu.next.cartesian_bridge import try_call_scan
 
             with offset_provider_context(offset_provider):

@@ -200,9 +200,9 @@ def _shift_plan(conn, column: int, own_start: int, n: int):
         # whole-field pass — route them to the residual gather. The
         # threshold is deliberately SOFT (n_src/4096, floor 2): genuine
         # mesh-structure classes (periodic wraps, block boundaries)
-        # serve ~n_src/n rows and must stay rolls — demoting the 256-row
-        # wrap class of the 131k-row periodic quad mesh to the residual
-        # measured 9.7 -> 14.0 us/step on FVM nabla (v5e). The largest
+        # serve ~n_src/n rows and must stay rolls (what demoting the wrap
+        # class of the periodic quad mesh to the residual costs on the GPU
+        # is not measured). The largest
         # class is always kept so the plan has a base shift; if even it
         # is tiny, the residual-fraction check below rejects the plan
         # entirely.
@@ -267,8 +267,7 @@ def _roll_plan(conn, column: int, own_start: int, n: int):
     meshes flattened from 2-D grids: a j-neighbor is a minor-axis roll
     with period P = row length). One roll replaces the class plan's K
     rolls + masked selects: the HLO is a pure slice/concat chain with no
-    select masks, which XLA fuses end-to-end and (for VMEM-sized
-    working sets) keeps entirely VMEM-resident across chained steps.
+    select masks, which XLA fuses end-to-end.
 
     Search: per target tile, the candidate minor periods are the
     divisors of the window length; for each P the per-row key
@@ -409,8 +408,9 @@ def _shift_gather_1d(x, conn, column: int, own_start: int, apply_fixup: bool = T
 
     ``apply_fixup=False`` skips the residual fix-up (the multi-column
     remap path batches all columns' fix-ups into one gather + one
-    scatter instead — each isolated small gather/scatter pays a ~4-5 us
-    fixed op cost on v5e, so a 4-column table saves ~6 ops per step)."""
+    scatter instead — each isolated small gather/scatter pays a fixed op
+    cost, so a 4-column table saves ~6 ops per step; the cost on the GPU is
+    not measured)."""
     import jax.numpy as jnp
 
     n = x.shape[0]
@@ -442,10 +442,7 @@ def _shift_gather_1d(x, conn, column: int, own_start: int, apply_fixup: bool = T
             # whole-row gather runs at the per-row ceiling already
             fix = jnp.take(x, jnp.asarray(plan.res_idx), axis=0)
         # res_rows comes from np.nonzero -> sorted and unique by
-        # construction; the hints let XLA skip the scatter's dedup
-        # sort (isolated scatter: 38 -> 29 us for 2.6k rows of a 131k
-        # array on v5e; inside the fused nabla step the difference is
-        # within measurement noise, so this is free, not a speedup).
+        # construction; the hints let XLA skip the scatter's dedup sort.
         out = out.at[jnp.asarray(plan.res_rows)].set(
             fix, unique_indices=True, indices_are_sorted=True
         )
@@ -456,15 +453,12 @@ def _batched_residual(conn, own_start: int, n: int):
     """Combine the residual fix-up GATHERS of all columns of ``conn``
     into one concatenated source-index array, so a multi-column remap
     pays ONE fix gather from the source field instead of one per column
-    (an isolated small gather costs ~4-5 us fixed + ~11 ns/element on
-    v5e — far above the large-gather rate). The SCATTERS merge too: the
-    fixed-up parts concatenate along axis 0 (lane-layout-trivial for
-    1-D parts, unlike an axis-1 stack whose row-major flatten is a full
-    relayout of a 128-lane-padded array — measured 110 -> ~245 us/step
-    on perturbed FVM nabla, do not re-try) and ONE scatter at flattened
-    ``seg*n_src + res_rows`` offsets serves every column, with slices
-    recovering the per-column parts (isolated 4-column fix-up op set:
-    51 -> 45 us on v5e). Returns ``(src_idx, flat_rows, segments)``
+    (an isolated small gather pays a fixed cost far above its per-element
+    rate). The SCATTERS merge too: the fixed-up parts concatenate along
+    axis 0 and ONE scatter at flattened ``seg*n_src + res_rows`` offsets
+    serves every column, with slices recovering the per-column parts (the
+    GPU times of both forms are not measured). Returns
+    ``(src_idx, flat_rows, segments)``
     with ``segments`` a list of ``(column, start, stop)`` slices into
     the gather result, or None when no column has residual rows.
     Cached on the connectivity (tables are immutable)."""
@@ -514,9 +508,8 @@ def _apply_batched_fixup(parts, x, conn, own_start: int):
     parts (each ``(n_src, *rest)``, BEFORE stacking): one concatenated
     row gather from ``x``, then ONE scatter into the axis-0
     concatenation of the fixed-up columns' parts (sliced back apart
-    afterwards — axis-0 concat/slice of lane-contiguous parts is
-    layout-free, and one scatter beats one per column by ~6 us on the
-    v5e 4-column fix-up op set). Returns the updated parts list."""
+    afterwards — one scatter instead of one per column). Returns the
+    updated parts list."""
     import jax.numpy as jnp
 
     combined = _batched_residual(conn, own_start, x.shape[0])
@@ -607,21 +600,13 @@ def _propagate_parts(out, lhs, a, rhs, b, dims, dom, op):
 def _rowgather_1d(x, idx):
     """Unstructured 1-D gather as a row gather + in-row mask-select.
 
-    XLA's TPU scalar gather costs ~7 ns/element; gathering 8-wide ROWS
-    and selecting the lane with an iota mask runs ~3x faster (measured
-    944 -> ~300 us for 131k f32 gathers on v5e — the FVM-nabla hot path).
-    ``idx`` must be pre-clamped int32; any shape (result keeps it).
+    Gathers 8-wide ROWS and selects the lane with an iota mask instead of
+    gathering single elements (the FVM-nabla hot path). Whether this beats
+    XLA's plain element gather on the GPU is not measured (ROADMAP Speed
+    5). ``idx`` must be pre-clamped int32; any shape (result keeps it).
 
     Multi-dim fields (e.g. ICON-style (Cell, K) columns) do NOT need
-    this: ``take`` along axis 0 already gathers whole rows (measured
-    337 GB/s for 256 B rows — near the per-row ceiling).
-
-    Measured negative results (do not re-try without new information):
-    wider rows (W=32/128) are NOT faster — the cost is per gathered row
-    (~2.3 ns), not bytes; an MXU one-hot matmul formulation needs
-    ~17 Gflop f32 for this shape (~350 us at the f32 MXU rate) and loses
-    precision in bf16; in-kernel ``jnp.take`` does not lower on this
-    Mosaic toolchain."""
+    this: ``take`` along axis 0 already gathers whole rows."""
     import jax.numpy as jnp
     from jax import lax
 
@@ -959,9 +944,8 @@ class Field:
         own_start = self.domain[conn.codomain].unit_range.start
         idx = table - own_start
         lazy_parts = None
-        # int32 indices + pre-clamped 'clip' mode: TPU 1D gathers are far
-        # cheaper without x64 index math and out-of-bounds fill selects
-        # (FVM-nabla hot path).
+        # int32 indices + pre-clamped 'clip' mode: 1-D gathers without x64
+        # index math and out-of-bounds fill selects (FVM-nabla hot path).
         if hasattr(conn, "sharded_gather"):
             # Distributed explicit-ghost connectivity (parallel/
             # unstructured.DistributedUnstructured): the gather runs
@@ -979,8 +963,8 @@ class Field:
             if axis == 0 and self.ndarray.dtype != np.bool_:
                 # Structured-connectivity fast path: columns with few
                 # distinct (target - source) shift classes lower to rolls +
-                # masked selects (bandwidth-bound; the per-row gather rate
-                # of ~2.3 ns/row is ~2 orders below streaming). Fields with
+                # masked selects (bandwidth-bound, where a row gather is
+                # bound by its per-row rate). Fields with
                 # trailing data axes (e.g. (Cell, K)) roll whole rows.
                 cols = [column] if column is not None else list(
                     range(conn.table.shape[1])

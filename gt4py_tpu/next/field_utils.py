@@ -25,7 +25,7 @@ def asnumpy(value: Any) -> Any:
 
 def verify_device(value: Any, platform: str) -> bool:
     """True if all backing arrays live on the given platform
-    ('cpu' | 'tpu' | ...)."""
+    ('cpu' | 'gpu' | ...)."""
     if isinstance(value, tuple):
         return all(verify_device(v, platform) for v in value)
     arr = value.ndarray if isinstance(value, Field) else value

@@ -9,11 +9,11 @@ expression IR, transformation passes run on it
 elimination, common-subexpression elimination, reduction unrolling,
 temporary extraction), and the result is compiled back to an executable.
 
-TPU-first difference: the reference lowers FOAST onward to ITIR and
+Difference by design: the reference lowers FOAST onward to ITIR and
 C++/DaCe codegen; here the executable target is *Python that traces into
 XLA* — :func:`codegen` emits a function semantically equivalent to the
 original definition (same global namespace, same builtins), so everything
-downstream (jit, sharding, the cartesian bridge, Pallas) is unchanged.
+downstream (jit, sharding, the cartesian bridge) is unchanged.
 The passes are therefore real program transformations observable in the
 emitted source (``op.inspect(stage="foast")``) and in the jaxpr/HLO.
 

@@ -7,7 +7,7 @@ UnrollReduce, global_tmps) restated for a trace-into-XLA execution model:
 
 - passes that REMOVE work (folding, DCE, CSE) shrink the traced program —
   fewer primitives for XLA to fuse, smaller jaxprs, faster trace;
-- passes that RESHAPE work target the TPU memory system: ``unroll_reduce``
+- passes that RESHAPE work target the device memory system: ``unroll_reduce``
   converts a dense neighbor remap (gather of max_neighbors columns + axis
   reduce) into per-column partial gathers summed on the fly, and
   ``extract_temporaries`` forces fusion boundaries through

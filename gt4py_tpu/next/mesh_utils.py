@@ -5,8 +5,8 @@ selects when its ``(target - source) mod n`` diffs form few cyclic-shift
 classes (``embedded._shift_plan``), and tolerates a small residual of
 irregular rows (hybrid plan).  Whether a REAL mesh qualifies is purely a
 property of its *numbering*: a structured mesh scrambled by an arbitrary
-vertex permutation pays the full per-row gather rate (~2 orders below
-streaming on TPU), while the same mesh numbered row-major streams.
+vertex permutation pays the full per-row gather rate, while the same mesh
+numbered row-major streams.
 
 This module gives users the levers:
 
@@ -21,10 +21,9 @@ This module gives users the levers:
 
 Reference analog: gt4py has no renumbering utility — meshes arrive
 pre-numbered from Atlas/ICON (see the fvm_nabla setup in
-``tests/next_tests/.../ffront_tests/test_fvm_nabla.py:64``); on GPUs the
-gather cost is numbering-insensitive.  On TPU the numbering IS the
-difference between gather-rate and streaming-rate execution, so the
-utility is part of the framework.
+``tests/next_tests/.../ffront_tests/test_fvm_nabla.py:64``). Whether the
+numbering matters on the GPU, where gathers are cached, is not measured
+(ROADMAP Speed 5).
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ Role of the reference's ``gt4py.next.otf``
 bindings → C++ compilation workflows and dispatches calls through a
 ``CompiledProgramsPool`` keyed by static-argument descriptors
 (otf/compiled_program.py:333,495-539), compiling variants asynchronously
-(otf/compilation_tasks.py). On TPU the toolchain is jax trace → lower →
+(otf/compilation_tasks.py). Here the toolchain is jax trace → lower →
 XLA compile; this module keeps the same surface:
 
 - :class:`CompilationOptions` — ``enable_jit``, ``static_params``
@@ -149,10 +149,9 @@ def _force_cpu_in_child():
     """Pool initializer: pin the worker to the host CPU backend. Jobs are
     only shipped when the parent's target is CPU (submit() guards on
     ``jax.default_backend() == "cpu"``), but the child re-imports jax
-    under the ambient site configuration, which may point at a remote
-    accelerator — and remote-plugin discovery can block indefinitely
-    when that device is unreachable. The explicit config (not just the
-    env var, which site hooks may override) keeps the worker hermetic."""
+    and would otherwise claim the parent's GPU as well. The explicit
+    config (not just the env var, which site hooks may override) keeps the
+    worker on the host."""
     import os
 
     os.environ["JAX_PLATFORMS"] = "cpu"
@@ -197,7 +196,7 @@ def _process_compile_job(blob: bytes):
 class _ProcessRunner:
     """Compile variants in worker processes (reference
     otf/compilation_tasks.py:136). Only sound when the target platform is
-    the host CPU (a child cannot share the parent's TPU client); TPU
+    the host CPU (a child cannot share the parent's GPU client); GPU
     sessions and unpicklable programs fall back to the thread runner."""
 
     def __init__(self, workers: int):
@@ -214,9 +213,8 @@ class _ProcessRunner:
         blob = None
         if jax.default_backend() == "cpu":
             def _host(v):
-                # Device arrays do not pickle portably (and pickling one
-                # can stall behind remote-device plugins); ship host copies
-                # — the child's jit re-commits them.
+                # Device arrays do not pickle portably; ship host copies —
+                # the child's jit re-commits them.
                 return np.asarray(v) if isinstance(v, jax.Array) else v
 
             try:

@@ -18,7 +18,7 @@ Passes:
   later statement are dropped (operator calls are effectful and always
   kept).
 
-TPU-first difference: the reference lowers PAST to ITIR program closures
+Difference by design: the reference lowers PAST to ITIR program closures
 compiled per-backend; here the executable target is Python that traces
 into XLA — the whole-program ``jax.jit`` in ``Program.__call__`` is the
 ProgramLowering analog (one XLA dispatch per program call), and PAST

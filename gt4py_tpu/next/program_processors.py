@@ -4,7 +4,7 @@ Counterpart of the reference's ``gt4py.next.program_processors`` formatter
 family (/root/reference/src/gt4py/next/program_processors/
 program_formatter.py and the ITIR pretty printer, iterator/
 pretty_printer.py): processors that *render* a program instead of
-executing it. On TPU the program IR is the traced jaxpr (XLA plays the
+executing it. Here the program IR is the traced jaxpr (XLA plays the
 ITIR-optimizer role), so the formatters expose jaxpr and lowered-HLO text
 for any field operator and argument signature.
 """

@@ -1,11 +1,11 @@
-"""Typed artifact stages of the TPU compile toolchain.
+"""Typed artifact stages of the JAX compile toolchain.
 
 Role of the reference's stage dataclasses — ``ffront/stages.py``
 (``DSLFieldOperatorDef:74``, ``FOASTOperatorDef:88``) and
 ``otf/stages.py:71-141`` (``ProgramSource``, ``CompilableSource``,
 ``CompilationArtifact``): each compilation phase produces a typed,
 fingerprintable artifact, so workflow steps have real input/output
-contracts instead of passing opaque callables around. On TPU the phases
+contracts instead of passing opaque callables around. Here the phases
 are
 
     OperatorDefinition --deduce--> TypedDefinition --trace--> TracedProgram

@@ -1,9 +1,9 @@
-"""Multi-chip stencil execution: IJ domain decomposition over a device mesh.
+"""Multi-device stencil execution: IJ domain decomposition over a device mesh.
 
 NEW functionality relative to the reference (which is single-process,
 SURVEY.md §2.6): a compiled stencil is lifted to SPMD with ``shard_map`` —
-each device owns an (ni/nx, nj/ny, nk) block, halos move over ICI with
-``lax.ppermute`` (halo.py), and the single-chip GTIR evaluator runs
+each device owns an (ni/nx, nj/ny, nk) block, halos move between devices
+with ``lax.ppermute`` (halo.py), and the single-device GTIR evaluator runs
 unchanged on the halo-extended local block. The whole step (exchange +
 compute) is one jitted program, so XLA overlaps the ppermute transfers with
 independent compute where possible.
@@ -15,6 +15,7 @@ from typing import Any, Optional
 
 import numpy as np
 
+from gt4py_tpu.cartesian.backend import ksweep_triton
 from gt4py_tpu.cartesian.definitions import AccessKind
 from gt4py_tpu.cartesian.stencil_object import StencilObject
 from gt4py_tpu.parallel.halo import exchange_halos_2d
@@ -36,11 +37,10 @@ class DistributedStencil:
     multiple inside the jitted program (cyclic fill under periodic
     boundaries, edge/zero fill under clamp/zero) and the written outputs
     are trimmed back — shard shapes stay static for XLA. ``boundary``
-    selects the global boundary condition ("periodic" ICI torus wrap /
-    "clamp" edge replication / "zero"; one value or an (i, j) pair).
-    ``backend`` selects the per-shard compute: "jax" (fused XLA evaluator)
-    or "tpu:pallas" (the Pallas kernel strategies inside each shard; falls
-    back to the evaluator for unsupported constructs).
+    selects the global boundary condition ("periodic" wrap / "clamp" edge
+    replication / "zero"; one value or an (i, j) pair). ``backend``
+    selects the per-shard compute: "jax" (fused XLA evaluator) or "gpu"
+    (the same, with the K-sweep kernel for the sections it accepts).
     """
 
     def __init__(
@@ -56,7 +56,7 @@ class DistributedStencil:
         self.mesh = mesh if mesh is not None else CartesianMesh()
         self.boundary = boundary
         self.backend = backend or (
-            "tpu:pallas" if stencil.backend == "tpu:pallas" else "jax"
+            "gpu" if stencil.backend == "gpu" else "jax"
         )
         self.field_infos = self.analyzed.field_infos
         self.parameter_infos = self.analyzed.parameter_infos
@@ -185,7 +185,9 @@ class DistributedStencil:
         out_specs = tuple(spec_for(n) for n in written)
 
         boundary = self.boundary
-        use_pallas = self.backend == "tpu:pallas"
+        ksweep = ksweep_triton.kernel_mode() if self.backend == "gpu" else None
+        #: kernel modes that served the shard trace (filled when it traces)
+        served: set[str] = set()
 
         def local_step(*local_arrays):
             from gt4py_tpu.cartesian.backend.evaluator import Evaluator
@@ -214,32 +216,11 @@ class DistributedStencil:
                 )
             assert local_domain is not None, "Need at least one IJK field"
             scalars = dict(zip(scalar_names, local_arrays[len(field_names):]))
-            out = None
-            if use_pallas:
-                # Pallas kernel strategies inside the shard (interpret mode
-                # off-TPU); unsupported constructs fall to the evaluator.
-                import jax as _jax
-
-                from gt4py_tpu.cartesian.backend.pallas_codegen import (
-                    PallasUnsupported,
-                    build_pallas_fn,
-                )
-
-                try:
-                    pfn = build_pallas_fn(
-                        analyzed,
-                        local_domain,
-                        origins,
-                        interpret=_jax.default_backend() != "tpu",
-                    )
-                    out = pfn(arrays, scalars)
-                except PallasUnsupported:
-                    out = None
-            if out is None:
-                ev = Evaluator(
-                    analyzed, local_domain, origins, arrays, scalars, ns="jax"
-                )
-                out = ev.run()
+            ev = Evaluator(
+                analyzed, local_domain, origins, arrays, scalars, ns="jax", ksweep=ksweep
+            )
+            out = ev.run()
+            served.update(ev.kernels)
             results = []
             for name in written:
                 i_lo, i_hi, j_lo, j_hi = halos[name]
@@ -268,7 +249,7 @@ class DistributedStencil:
 
         needs_pad = any(p[1] or p[2] for p in plans.values())
         if not needs_pad:
-            return jax.jit(fn), scalar_names
+            return jax.jit(fn), scalar_names, served
 
         def padded_fn(*args):
             fields = [
@@ -277,7 +258,7 @@ class DistributedStencil:
             outs = fn(*fields, *args[len(field_names):])
             return tuple(trim_field(n, o) for n, o in zip(written, outs))
 
-        return jax.jit(padded_fn), scalar_names
+        return jax.jit(padded_fn), scalar_names, served
 
     def lowered_hlo(self, **kwargs) -> str:
         """Compiled HLO of the SPMD step for the given fields — lets tests
@@ -306,7 +287,7 @@ class DistributedStencil:
         key = (field_names, shapes)
         if key not in self._cache:
             self._cache[key] = self._build(field_names, shapes, nk)
-        fn, scalar_names = self._cache[key]
+        fn, scalar_names, _ = self._cache[key]
         scalars = [
             np.asarray(kwargs[name], dtype=self.parameter_infos[name].dtype)[()]
             for name in scalar_names
@@ -340,7 +321,7 @@ class DistributedStencil:
         key = (field_names, shapes)
         if key not in self._cache:
             self._cache[key] = self._build(field_names, shapes, nk)
-        fn, scalar_names = self._cache[key]
+        fn, scalar_names, served = self._cache[key]
 
         scalars = []
         for name in scalar_names:
@@ -351,6 +332,8 @@ class DistributedStencil:
             )
 
         results = fn(*(field_args[n] for n in field_names), *scalars)
+        #: which path served the shards: "xla", "triton" or "triton-interpret"
+        self.last_kernel = next(iter(served), "xla")
         out = dict(zip(self.written, results))
         for name, new in out.items():
             if isinstance(originals.get(name), Storage):

@@ -1,10 +1,10 @@
-"""ICI halo exchange for IJ-decomposed fields.
+"""Halo exchange for IJ-decomposed fields.
 
 Runs *inside* a ``shard_map`` region: each shard sends its edge slabs to the
-four mesh neighbors with ``lax.ppermute`` (point-to-point collective-permute
-over the ICI links) and concatenates the received slabs as halos. The
-GLOBAL boundary condition is selectable per axis: ``periodic`` (ICI torus
-wrap), ``clamp`` (edge replication — the standard non-periodic dycore
+four mesh neighbors with ``lax.ppermute`` (point-to-point collective-permute,
+over NVLink between the GPUs of one host) and concatenates the received
+slabs as halos. The GLOBAL boundary condition is selectable per axis:
+``periodic`` (wrap), ``clamp`` (edge replication — the standard non-periodic dycore
 boundary) or ``zero``; non-periodic modes overwrite the wrapped slab on
 boundary shards only, so interior exchanges are identical.
 
@@ -72,8 +72,7 @@ def exchange_halos_2d(
     shape (ni + i_lo + i_hi, nj + j_lo + j_hi, ...).
 
     ``boundary`` selects the GLOBAL domain boundary condition per axis
-    (one value or an (i, j) pair): ``"periodic"`` keeps the ICI torus
-    wrap; ``"clamp"`` replicates the global edge into the halo (the usual
+    (one value or an (i, j) pair): ``"periodic"`` keeps the wrap; ``"clamp"`` replicates the global edge into the halo (the usual
     non-periodic dycore boundary, round-1 verdict item 8); ``"zero"``
     fills zeros. Interior shard exchanges are identical in all modes.
     """

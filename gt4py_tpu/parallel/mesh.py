@@ -1,22 +1,13 @@
-"""Device-mesh management for multi-chip stencil execution.
+"""Device-mesh management for multi-device stencil execution.
 
 This subsystem is NEW functionality relative to the reference: gt4py is
 single-process and delegates distribution to consumers (GHEX/mpi4py in the
 GridTools ecosystem — verified absent in the reference by grep, SURVEY.md
-§2.6). The TPU-native design decomposes the horizontal IJ domain over a 2-D
-``jax.sharding.Mesh`` whose axes ride the ICI torus; K stays on-chip
-(sequential scans are a single-core loop).
-
-Multi-slice / DCN awareness (SURVEY.md §5): on multi-slice TPU topologies
-the inter-slice links (DCN) are an order of magnitude slower than the
-intra-slice ICI torus, so the IJ decomposition must keep halo partners
-intra-slice wherever possible. ``CartesianMesh`` reads each device's
-``slice_index`` (synthesizable via ``slice_indices=`` for virtual-mesh
-tests), lays slices out contiguously along the OUTER (x) mesh axis, and
-orders devices inside each slice by their torus ``coords``. Halo
-exchanges along y then NEVER cross DCN, and along x they cross only at
-the ``dcn_boundaries()`` rows — one exchange per slice pair, the minimum
-any decomposition of that shape can achieve.
+§2.6). The design here decomposes the horizontal IJ domain over a 2-D
+``jax.sharding.Mesh``; K stays on one device (sequential sweeps are a
+per-column loop). The GPUs of one host are joined all to all by NVLink, so
+the mesh follows the decomposition alone: devices in the order JAX lists
+them, on the most square grid that holds them.
 """
 
 from __future__ import annotations
@@ -29,77 +20,25 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec
 
 
 class CartesianMesh:
-    """2-D (x, y) device mesh for IJ domain decomposition.
-
-    ``slice_indices`` overrides the per-device ``slice_index`` attribute
-    (testing on CPU/virtual meshes, where devices carry no slice info).
-    """
+    """2-D (x, y) device mesh for IJ domain decomposition."""
 
     def __init__(
         self,
         devices: Optional[Sequence] = None,
         shape: Optional[tuple[int, int]] = None,
-        *,
-        slice_indices: Optional[Sequence[int]] = None,
     ):
-        if devices is None:
-            devices = jax.devices()
-        devices = list(devices)
-        n = len(devices)
         import numpy as np
 
-        if slice_indices is None:
-            slice_indices = [getattr(d, "slice_index", 0) or 0 for d in devices]
-        if len(slice_indices) != n:
-            raise ValueError(
-                f"{len(slice_indices)} slice indices for {n} devices"
-            )
-        self.slice_indices = list(slice_indices)
-        groups: dict[int, list] = {}
-        for d, s in zip(devices, slice_indices):
-            groups.setdefault(int(s), []).append(d)
-        sizes = {len(g) for g in groups.values()}
-        self.n_slices = len(groups)
-
-        if self.n_slices > 1 and len(sizes) == 1:
-            # Equal slices: x axis is slice-major — slice s owns x rows
-            # [s*sx, (s+1)*sx); halo partners along y and along x inside a
-            # slice ride ICI, only the x rows at slice boundaries cross DCN.
-            per = sizes.pop()
-            sx, sy = _factor2(per)
-            if shape is not None:
-                if shape[0] % self.n_slices != 0:
-                    raise ValueError(
-                        f"Mesh shape {shape} cannot distribute "
-                        f"{self.n_slices} slices along x"
-                    )
-                sx, sy = shape[0] // self.n_slices, shape[1]
-                if sx * sy != per:
-                    raise ValueError(
-                        f"Mesh shape {shape} does not match {self.n_slices} "
-                        f"slices of {per} devices"
-                    )
-            ordered: list = []
-            for s in sorted(groups):
-                ordered.extend(_ici_order(groups[s]))
-            self._slice_grouped = True
-            self._slice_rows = sx
-            arr = np.asarray(ordered).reshape((self.n_slices * sx, sy))
-            self.shape = (self.n_slices * sx, sy)
-        else:
-            # Single slice (or irregular slice sizes: fall back gracefully
-            # to the flat layout — still correct, just not DCN-minimal).
-            if shape is None:
-                shape = _factor2(n)
-            if shape[0] * shape[1] != n:
-                raise ValueError(f"Mesh shape {shape} does not match {n} devices")
-            self._slice_grouped = False
-            self._slice_rows = shape[0]
-            arr = np.asarray(_ici_order(devices)).reshape(shape)
-            self.shape = tuple(shape)
-        self.mesh = Mesh(arr, axis_names=("x", "y"))
+        devices = list(jax.devices() if devices is None else devices)
+        n = len(devices)
+        if shape is None:
+            shape = _factor2(n)
+        if shape[0] * shape[1] != n:
+            raise ValueError(f"Mesh shape {shape} does not match {n} devices")
+        self.shape = tuple(shape)
         #: device grid as laid out on the mesh (row-major (x, y))
-        self.device_grid = arr
+        self.device_grid = np.asarray(devices).reshape(self.shape)
+        self.mesh = Mesh(self.device_grid, axis_names=("x", "y"))
 
     @property
     def nx(self) -> int:
@@ -109,32 +48,6 @@ class CartesianMesh:
     def ny(self) -> int:
         return self.shape[1]
 
-    def dcn_boundaries(self) -> list[int]:
-        """x indices whose +x halo partner lives on ANOTHER slice: the
-        exchange between x row i and i+1 crosses DCN iff i is listed
-        (plus the periodic x wrap nx-1 -> 0 on multi-slice meshes)."""
-        if not self._slice_grouped:
-            return []
-        rows = [
-            i * self._slice_rows - 1
-            for i in range(1, self.n_slices)
-        ]
-        rows.append(self.nx - 1)  # periodic wrap crosses slices too
-        return rows
-
-    def slice_of(self, x: int, y: int) -> int:
-        """Slice index of the device at mesh position (x, y)."""
-        if not self._slice_grouped:
-            return 0
-        return x // self._slice_rows
-
-    def is_intra_slice(self, axis: str, index: int) -> bool:
-        """Whether the halo exchange from mesh row/col ``index`` to
-        ``index + 1`` along ``axis`` ('x' | 'y') stays inside one slice."""
-        if axis == "y" or not self._slice_grouped:
-            return True
-        return (index % self._slice_rows) != self._slice_rows - 1
-
     def sharding(self, spec: PartitionSpec = PartitionSpec("x", "y", None)) -> NamedSharding:
         return NamedSharding(self.mesh, spec)
 
@@ -143,22 +56,8 @@ class CartesianMesh:
         return jax.device_put(array, self.sharding())
 
 
-def _ici_order(devices: Sequence) -> list:
-    """Order devices inside one slice by torus coordinates (z, y, x) so
-    mesh-adjacent devices are ICI-adjacent; devices without coords keep
-    their given order (CPU/virtual meshes)."""
-    def key(item):
-        i, d = item
-        c = getattr(d, "coords", None)
-        if c is None:
-            return (0, i)
-        return (1, tuple(reversed(tuple(c))), getattr(d, "core_on_chip", 0))
-
-    return [d for _, d in sorted(enumerate(devices), key=lambda it: key(it))]
-
-
 def _factor2(n: int) -> tuple[int, int]:
-    """Most-square factorization of n (prefer balanced ICI traffic)."""
+    """Most-square factorization of n (the least halo surface per shard)."""
     best = (1, n)
     for a in range(1, int(math.isqrt(n)) + 1):
         if n % a == 0:

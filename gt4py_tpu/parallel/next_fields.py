@@ -4,11 +4,11 @@ NEW functionality relative to the reference (single-process, SURVEY.md
 §2.6). Unlike the cartesian path — which runs the evaluator under
 ``shard_map`` with explicit ``ppermute`` halo exchange
 (parallel/distributed.py) — field operators are pure ``jnp`` programs
-(shifted slices, gathers, scans), so the TPU-native distribution story is
+(shifted slices, gathers, scans), so the distribution story here is
 GSPMD: place the backing arrays with a ``NamedSharding`` mapping field
 dimensions onto mesh axes and call operators normally under ``jax.jit``;
 XLA partitions the program and inserts the halo ``collective-permute``s
-over ICI automatically.
+between devices automatically.
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ def shard_field(
 ) -> Field:
     """Place a Field's array sharded over the mesh (default: first two
     horizontal dimensions onto the mesh's x/y axes). Shifted reads in
-    operators applied to the result become ICI collective-permutes under
+    operators applied to the result become collective-permutes under
     GSPMD — the next-DSL halo exchange."""
     import jax
 

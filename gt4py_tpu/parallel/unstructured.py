@@ -10,7 +10,7 @@ sends per axis step (reference has nothing here — gt4py delegates
 distribution to GHEX; SURVEY.md §2.6 "connectivity tables become sharded
 gather indices").
 
-TPU-native recipe (composes ``next/mesh_utils.py`` renumbering with a 1-D
+Recipe here (composes ``next/mesh_utils.py`` renumbering with a 1-D
 device ring):
 
 1. :func:`ring_partition` — contiguous equal blocks of each element kind
@@ -21,7 +21,7 @@ device ring):
    ``[lo-halo | owned | hi-halo]``; halo widths are uniform across
    shards (SPMD), computed from the worst shard.
 3. :func:`halo_gather` — inside ``shard_map``: two ``lax.ppermute`` slab
-   exchanges over the ring (ICI collective-permutes, never all-gather),
+   exchanges over the ring (collective-permutes, never all-gather),
    concatenation, then the ordinary local gather.
 
 Plan-time validation rejects meshes whose ghosts reach beyond the
@@ -207,7 +207,7 @@ class DistributedUnstructured:
     - each connectivity becomes a per-shard LOCAL table addressing a
       shard-extended value buffer (:func:`partition_gather`);
     - remote rows arrive as two fixed-width ``lax.ppermute`` slab
-      exchanges per table (ICI collective-permutes — never an
+      exchanges per table (collective-permutes — never an
       all-gather), validated by tests at the HLO level;
     - ``skip_value`` masking flows through the embedded mask machinery
       end-to-end.
@@ -391,7 +391,7 @@ class DistributedUnstructured:
 
 def halo_gather(values, local_table, plan: ShardedGather, axis_name: str):
     """Inside ``shard_map``: exchange halo slabs with the ring neighbors
-    (two ``lax.ppermute``s — ICI collective-permutes) and gather through
+    (two ``lax.ppermute``s — collective-permutes) and gather through
     the shard's local table. ``values``: (n_local, ...) owned block;
     ``local_table``: this shard's (rows_local, deg) block of
     ``plan.local_tables``."""

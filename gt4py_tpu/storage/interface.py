@@ -6,7 +6,7 @@ API parity with the reference's
 signatures (``shape, dtype, *, backend, aligned_index, dimensions``); the
 returned object is a :class:`~gt4py_tpu.storage.storage.Storage` holding a
 device-resident JAX array instead of a strided host buffer — layout and
-alignment are XLA's responsibility on TPU.
+alignment on the device are XLA's responsibility.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import numpy as np
 
 from gt4py_tpu.storage.storage import Storage
 
-_KNOWN_BACKENDS = {"debug", "numpy", "cpu:c", "jax", "tpu:pallas"}
+_KNOWN_BACKENDS = {"debug", "numpy", "cpu:c", "jax", "gpu"}
 
 
 def _validate(shape, aligned_index, dimensions, backend) -> None:
@@ -44,8 +44,8 @@ def empty(
     aligned_index: Optional[Sequence[int]] = None,
     dimensions: Optional[Sequence[str]] = None,
 ) -> Storage:
-    """Allocate an uninitialized-value storage (zero-filled on TPU; XLA has
-    no uninitialized allocation).
+    """Allocate an uninitialized-value storage (zero-filled: XLA has no
+    uninitialized allocation).
 
     With ``GT4PY_DEBUG_POISON_EMPTY=1`` the fill becomes NaN (floats) /
     the dtype's max (ints) instead: reference test suites rely on

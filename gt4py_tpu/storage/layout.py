@@ -6,12 +6,11 @@ Counterpart of the reference's ``gt4py.storage.cartesian.layout``
 describing where its storages live and how the axes map to the physical
 order; ``storage.empty(..., backend=...)`` consults the registry.
 
-On TPU the physical tiling belongs to XLA ((8, 128) vregs on the two minor
-dims), so ``layout_map`` expresses the *logical-to-minor* order the backend
-prefers — the Pallas backend's kernels run in K-leading ``(K, I, J)`` form
-(J on lanes, I on sublanes) while the public array order stays (I, J, K).
-``alignment`` keeps the reference's aligned-origin convention for host
-staging buffers (allocated natively via csrc/fastpath.c when built).
+Physical layout on the device belongs to XLA, so ``layout_map`` expresses
+the logical-to-minor order a backend's storages use: every built-in backend
+keeps the public (I, J, K) order, K minor. ``alignment`` keeps the
+reference's aligned-origin convention for host staging buffers (allocated
+natively via csrc/fastpath.c when built).
 """
 
 from __future__ import annotations
@@ -25,7 +24,7 @@ class LayoutInfo:
     """Reference LayoutInfo TypedDict (layout.py:21) as a frozen dataclass."""
 
     alignment: int  # bytes; aligned-index placement for host staging
-    device: str  # "cpu" | "tpu"
+    device: str  # "cpu" | "gpu"
     layout_map: tuple[int, ...]  # per logical axis (I, J, K): physical order rank
     is_optimal_layout: bool = True
 
@@ -48,18 +47,14 @@ def from_name(backend_name: str) -> Optional[LayoutInfo]:
     return REGISTRY.get(backend_name)
 
 
-def is_tpu_backend(backend_name: str) -> bool:
+def is_gpu_backend(backend_name: str) -> bool:
     info = REGISTRY.get(backend_name)
-    return info is not None and info.device == "tpu"
+    return info is not None and info.device == "gpu"
 
 
-# Built-in backends. Python-oracle backends keep row-major (I, J, K);
-# the TPU backends prefer K-leading kernel layout (K major, J minor=lanes).
+# Built-in backends; "jax" runs wherever JAX runs, a GPU in deployment.
 register("debug", LayoutInfo(alignment=1, device="cpu", layout_map=(0, 1, 2)))
 register("numpy", LayoutInfo(alignment=64, device="cpu", layout_map=(0, 1, 2)))
 register("cpu:c", LayoutInfo(alignment=64, device="cpu", layout_map=(0, 1, 2)))
-register("jax", LayoutInfo(alignment=128, device="tpu", layout_map=(0, 1, 2)))
-register(
-    "tpu:pallas",
-    LayoutInfo(alignment=128, device="tpu", layout_map=(1, 2, 0)),
-)
+register("jax", LayoutInfo(alignment=128, device="gpu", layout_map=(0, 1, 2)))
+register("gpu", LayoutInfo(alignment=128, device="gpu", layout_map=(0, 1, 2)))

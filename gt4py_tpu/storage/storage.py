@@ -1,13 +1,12 @@
-"""HBM-resident storage for stencil fields.
+"""Device-resident storage for stencil fields.
 
-TPU-native counterpart of the reference storage layer
+Counterpart of the reference storage layer
 (/root/reference/src/gt4py/storage/): the reference allocates host/GPU
 buffers with backend-specific strides/alignment so the compute-domain origin
 sits on an alignment boundary (allocators.py:68,149; cartesian/interface.py:40).
-On TPU, physical layout belongs to XLA (it tiles arrays into (8,128) vregs);
-what remains semantically meaningful is:
+Here physical layout belongs to XLA; what remains semantically meaningful is:
 
-- device residency (HBM via JAX),
+- device residency (device memory via JAX),
 - the ``aligned_index`` ↦ *default origin* convention: the index most often
   used as the compute-domain origin, exported through ``__gt_origin__``
   exactly like reference storages,
@@ -27,19 +26,9 @@ import numpy as np
 
 
 class Storage:
-    """Mutable ndarray-like wrapper around a ``jax.Array``.
+    """Mutable ndarray-like wrapper around a ``jax.Array``."""
 
-    Performance-critical extension over the reference storages: a storage
-    can additionally hold its data in a backend-NATIVE layout (the Pallas
-    backend's padded K-leading ``(K, I, J)`` form). Chained stencil calls
-    then pass native buffers directly — zero per-call transpose/pad — and
-    the public ``(I, J, K)`` view is decoded lazily on first host access.
-    This is the storage-layer counterpart of the reference's per-backend
-    ``layout_map`` (storage/cartesian/layout.py:21) where the layout is
-    actually *live* rather than advisory.
-    """
-
-    __slots__ = ("_array", "_native", "_decode", "_shape", "_dtype", "aligned_index", "dimensions")
+    __slots__ = ("_array", "_shape", "_dtype", "aligned_index", "dimensions")
 
     def __init__(
         self,
@@ -49,8 +38,6 @@ class Storage:
         dimensions: Optional[Sequence[str]] = None,
     ):
         self._array = array
-        self._native = None  # (key, native_array) when layout cache is valid
-        self._decode = None  # native_array -> public array
         self._shape = tuple(array.shape)
         self._dtype = np.dtype(array.dtype)
         self.aligned_index = (
@@ -58,36 +45,15 @@ class Storage:
         )
         self.dimensions = tuple(dimensions) if dimensions is not None else None
 
-    # -- native layout cache -------------------------------------------------
-
     @property
     def array(self) -> Any:
-        if self._array is None:
-            # Public view is stale: decode from the native buffer.
-            self._array = self._decode(self._native[1])
         return self._array
 
     @array.setter
     def array(self, value: Any) -> None:
         self._array = value
-        self._native = None
-        self._decode = None
         self._shape = tuple(value.shape)
         self._dtype = np.dtype(value.dtype)
-
-    def native_get(self, key: Any) -> Optional[Any]:
-        """The cached native-layout buffer for ``key``, or None."""
-        if self._native is not None and self._native[0] == key:
-            return self._native[1]
-        return None
-
-    def native_set(self, key: Any, native: Any, decode, *, stale_public: bool) -> None:
-        """Install a native-layout buffer. ``stale_public=True`` marks the
-        public array as outdated (it will be decoded lazily on access)."""
-        self._native = (key, native)
-        self._decode = decode
-        if stale_public:
-            self._array = None
 
     # -- gt4py interface (reference _core/definitions.py:363-376) -----------
 

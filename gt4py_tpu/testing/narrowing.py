@@ -1,12 +1,11 @@
-"""GTIR dtype narrowing: 64-bit → 32-bit rewrite for TPU-native runs.
+"""GTIR dtype narrowing: 64-bit → 32-bit rewrite for float32 test runs.
 
-The Mosaic toolchain has no 64-bit types (pallas_codegen.py:84-91), so the
-canonical f64 test corpus cannot exercise the native kernels directly.
-``narrow_stencil`` rewrites an analyzed-able GTIR tree in place-free copy
-form: every float64 → float32, int64 → int32, in declarations, literals,
-casts, and annotated expression dtypes. The narrowed IR runs both the
-Pallas strategies and the ``numpy`` oracle, so hardware comparisons stay
-dtype-consistent (reference analog: the dtype parametrization of
+The canonical test corpus is float64. ``narrow_stencil`` rewrites an
+analyzed-able GTIR tree in place-free copy form: every float64 → float32,
+int64 → int32, in declarations, literals, casts, and annotated expression
+dtypes. The narrowed IR runs both the backend under test and the ``numpy``
+oracle, so float32 comparisons stay dtype-consistent (reference analog:
+the dtype parametrization of
 StencilTestSuite, /root/reference/src/gt4py/cartesian/testing/suites.py:196).
 """
 

@@ -100,9 +100,10 @@ def _make_test(suite: type, backend: str, dtype: np.dtype):
                     for ax in range(3)
                 )
                 if eff.kind == "f":
-                    # TPU (and the Pallas interpreter) flush subnormals to
-                    # zero, so comparisons against 0 at subnormal inputs
-                    # are platform-defined — keep generators out of there.
+                    # Devices may flush subnormals to zero (GPUs under XLA's
+                    # fast-math defaults do), so comparisons against 0 at
+                    # subnormal inputs are platform-defined — keep
+                    # generators out of there.
                     elements = st.floats(
                         width=min(eff.itemsize * 8, 64),
                         allow_nan=False,

@@ -16,8 +16,9 @@ from gt4py_tpu.cartesian.backend.base import REGISTRY
 
 
 ALL_BACKENDS = sorted(REGISTRY)
-CPU_BACKENDS = [b for b in ALL_BACKENDS if not b.startswith("tpu:")]
-TPU_BACKENDS = [b for b in ALL_BACKENDS if b.startswith("tpu:")]
+#: backends with no hand-written kernel; ``gpu`` (its K-sweep kernel runs in
+#: the Pallas interpreter here) is covered by its own modules
+CPU_BACKENDS = [b for b in ALL_BACKENDS if b != "gpu"]
 # Reference: every backend except the pure-python oracles is "performance".
 PERFORMANCE_BACKENDS = [b for b in ALL_BACKENDS if b not in ("debug", "numpy")]
 
@@ -30,13 +31,7 @@ USES_GLOBAL_TABLE = "uses_global_table"
 USES_VARIABLE_K_OFFSET = "uses_variable_k_offset"
 USES_ABSOLUTE_K = "uses_absolute_k"
 USES_HORIZONTAL_REGION = "uses_horizontal_region"
-# Native-KERNEL path markers (round-3 hardware deltas): the construct runs
-# correctly on `tpu:pallas` but is SERVED by the XLA fallback, not a
-# Mosaic kernel. Tests asserting `pallas_strategy != "xla"` declare them.
 USES_FLOAT64 = "uses_float64"
-USES_LARGE_GLOBAL_TABLE = "uses_large_global_table"  # > _MAX_TABLE_ONEHOT
-USES_MATMUL = "uses_matmul"  # '@' on data-dim fields
-USES_WHOLE_VECTOR_OPS = "uses_whole_vector_ops"  # unindexed data-dim reads
 
 SKIP = "skip"
 XFAIL = "xfail"
@@ -45,24 +40,19 @@ XFAIL = "xfail"
 XLA_FALLBACK = "xla_fallback"
 
 #: backend -> {feature marker -> SKIP | XFAIL | XLA_FALLBACK}. Results are
-#: always correct on every backend (the Pallas backend falls back to the
-#: XLA path transparently); entries here are the honest record of which
-#: constructs the KERNEL generators do not serve natively on hardware —
-#: measured by tests/tpu_tests/test_registry_hardware.py (reference
-#: pattern: tests/next_tests/definitions.py:124-208, ADR 0015).
+#: correct on every backend; the ``gpu`` entries record which constructs in
+#: a FORWARD/BACKWARD section keep it off the K-sweep kernel
+#: (ksweep_triton.unsupported and the plane-scan gates; reference pattern:
+#: tests/next_tests/definitions.py:124-208, ADR 0015).
 BACKEND_SKIP_TEST_MATRIX: dict[str, dict[str, str]] = {b: {} for b in ALL_BACKENDS}
-BACKEND_SKIP_TEST_MATRIX["tpu:pallas"] = {
-    # Mosaic has no 64-bit types (pallas_codegen._check_supported).
-    USES_FLOAT64: XLA_FALLBACK,
-    # dynamic lookups one-hot-select over the table; capped at
-    # _MAX_TABLE_ONEHOT entries (pallas_codegen.py).
-    USES_LARGE_GLOBAL_TABLE: XLA_FALLBACK,
-    # ('@' matmul and whole-vector arithmetic unroll into per-component
-    # stream assignments since round 3 — served natively.)
-    # (Horizontal regions serve NATIVELY at domains with max(ni, nj) >= 32
-    # since round 3 — the Mosaic wedge hazard is confined to small shapes
-    # and gated by pallas_codegen._REGION_HW_FLOOR; sub-floor region
-    # stencils fall back to XLA transparently.)
+BACKEND_SKIP_TEST_MATRIX["gpu"] = {
+    USES_WHILE: XLA_FALLBACK,
+    USES_DATA_DIMS: XLA_FALLBACK,
+    USES_GLOBAL_TABLE: XLA_FALLBACK,
+    USES_VARIABLE_K_OFFSET: XLA_FALLBACK,
+    USES_ABSOLUTE_K: XLA_FALLBACK,
+    # tiles do not know their position in the domain
+    USES_HORIZONTAL_REGION: XLA_FALLBACK,
 }
 
 

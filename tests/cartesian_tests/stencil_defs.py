@@ -319,16 +319,56 @@ def large_k_interval(in_field: Field3D, out_field: Field3D):
             out_field = in_field
 
 
-# Generic-dtype variant (reference string-dtype pattern: resolved via the
-# dtypes={'vadv_dt': ...} build option) used by bench.py for float32 runs.
+# Generic-dtype variants of hdiff, tridiag and vadv (reference string-dtype
+# pattern: resolved via the dtypes={'float_t': ...} build option), used by
+# bench.py and chip_smoke.py to run each in float64 and float32.
+def horizontal_diffusion_generic(
+    in_field: "gtscript.Field['float_t']",
+    out_field: "gtscript.Field['float_t']",
+    coeff: "gtscript.Field['float_t']",
+):
+    with computation(PARALLEL), interval(...):
+        lap_field = 4.0 * in_field[0, 0, 0] - (
+            in_field[1, 0, 0] + in_field[-1, 0, 0] + in_field[0, 1, 0] + in_field[0, -1, 0]
+        )
+        res = lap_field[1, 0, 0] - lap_field[0, 0, 0]
+        flx_field = 0 if (res * (in_field[1, 0, 0] - in_field[0, 0, 0])) > 0 else res
+        res = lap_field[0, 1, 0] - lap_field[0, 0, 0]
+        fly_field = 0 if (res * (in_field[0, 1, 0] - in_field[0, 0, 0])) > 0 else res
+        out_field = in_field[0, 0, 0] - coeff[0, 0, 0] * (
+            flx_field[0, 0, 0] - flx_field[-1, 0, 0] + fly_field[0, 0, 0] - fly_field[0, -1, 0]
+        )
+
+
+def tridiagonal_solver_generic(
+    inf: "gtscript.Field['float_t']",
+    diag: "gtscript.Field['float_t']",
+    sup: "gtscript.Field['float_t']",
+    rhs: "gtscript.Field['float_t']",
+    out: "gtscript.Field['float_t']",
+):
+    with computation(FORWARD):
+        with interval(0, 1):
+            sup = sup / diag
+            rhs = rhs / diag
+        with interval(1, None):
+            sup = sup / (diag - sup[0, 0, -1] * inf)
+            rhs = (rhs - inf * rhs[0, 0, -1]) / (diag - sup[0, 0, -1] * inf)
+    with computation(BACKWARD):
+        with interval(-1, None):
+            out = rhs
+        with interval(0, -1):
+            out = rhs - sup * out[0, 0, 1]
+
+
 def vertical_advection_dycore_generic(
-    utens_stage: "gtscript.Field['vadv_dt']",
-    u_stage: "gtscript.Field['vadv_dt']",
-    wcon: "gtscript.Field['vadv_dt']",
-    u_pos: "gtscript.Field['vadv_dt']",
-    utens: "gtscript.Field['vadv_dt']",
+    utens_stage: "gtscript.Field['float_t']",
+    u_stage: "gtscript.Field['float_t']",
+    wcon: "gtscript.Field['float_t']",
+    u_pos: "gtscript.Field['float_t']",
+    utens: "gtscript.Field['float_t']",
     *,
-    dtr_stage: "vadv_dt",
+    dtr_stage: "float_t",
 ):
     from __externals__ import BET_M, BET_P
 

@@ -18,7 +18,7 @@ from gt4py_tpu.cartesian.gtscript import PARALLEL, FORWARD, computation, interva
 from . import stencil_defs as defs
 from .definitions import CPU_BACKENDS as _REGISTERED_CPU
 
-ALL_BACKENDS = [b for b in _REGISTERED_CPU if b != "tpu:pallas"]
+ALL_BACKENDS = list(_REGISTERED_CPU)
 FAST_BACKENDS = [b for b in ALL_BACKENDS if b != "debug"]
 
 Field3D = gtscript.Field[np.float64]

@@ -13,7 +13,7 @@ from gt4py_tpu.cartesian.gtscript import FORWARD, PARALLEL, computation, interva
 
 Field3F = gtscript.Field[np.float32]
 
-BACKENDS = ["numpy", "jax", "tpu:pallas"]
+BACKENDS = ["numpy", "jax", "gpu"]
 
 
 def smooth_defn(in_field: Field3F, out_field: Field3F, w: np.float32):
@@ -88,9 +88,9 @@ def test_chain_inout_accumulates_without_swap(backend):
     np.testing.assert_allclose(np.asarray(acc), 10.0 * inc_np, rtol=2e-5)
 
 
-@pytest.mark.parametrize("backend", ["jax", "tpu:pallas"])
+@pytest.mark.parametrize("backend", ["jax", "gpu"])
 def test_chain_forward_scan_pingpong(backend):
-    """Sequential-K stencils chain too (the staged kernel class)."""
+    """Sequential-K stencils chain too (the K-sweep kernel on ``gpu``)."""
 
     def cum(inp: Field3F, out: Field3F):
         with computation(FORWARD):

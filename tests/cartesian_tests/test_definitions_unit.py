@@ -143,8 +143,8 @@ def test_sequential_k_extent_from_analysis():
 
 
 def test_pallas_native_gap_matrix_populated():
-    """Round-3: the matrix records the genuine hardware deltas (constructs
-    served by the XLA fallback on tpu:pallas) rather than being an empty
+    """The matrix records which constructs keep a sequential section off
+    the ``gpu`` backend's K-sweep kernel, rather than being an empty
     mechanism."""
     from tests.cartesian_tests.definitions import (
         BACKEND_SKIP_TEST_MATRIX,
@@ -154,12 +154,12 @@ def test_pallas_native_gap_matrix_populated():
         expects_native_kernel,
     )
 
-    table = BACKEND_SKIP_TEST_MATRIX["tpu:pallas"]
-    assert table, "hardware deltas must be recorded"
-    assert table[USES_FLOAT64] == XLA_FALLBACK
-    assert not expects_native_kernel("tpu:pallas", USES_FLOAT64)
-    assert expects_native_kernel("tpu:pallas", "uses_scan")
-    # regions serve natively at >= _REGION_HW_FLOOR domains since round 3
-    assert expects_native_kernel("tpu:pallas", USES_HORIZONTAL_REGION)
+    table = BACKEND_SKIP_TEST_MATRIX["gpu"]
+    assert table, "kernel gaps must be recorded"
+    assert table[USES_HORIZONTAL_REGION] == XLA_FALLBACK
+    assert not expects_native_kernel("gpu", USES_HORIZONTAL_REGION)
+    assert expects_native_kernel("gpu", "uses_scan")
+    # float64 runs in the kernel on the GPU
+    assert expects_native_kernel("gpu", USES_FLOAT64)
     # every other backend serves everything
     assert BACKEND_SKIP_TEST_MATRIX["numpy"] == {}

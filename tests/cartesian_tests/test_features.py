@@ -631,7 +631,7 @@ def test_data_dim_reads_in_sequential_carry():
 # --- current-K iterator access (reference gtc/gtir.py:68) --------------------
 
 
-@pytest.mark.parametrize("backend", BACKENDS + ["debug", "tpu:pallas"])
+@pytest.mark.parametrize("backend", BACKENDS + ["debug", "gpu"])
 def test_iterator_access_parallel(backend):
     """Bare K in an expression yields the absolute K iteration index."""
 
@@ -646,7 +646,7 @@ def test_iterator_access_parallel(backend):
     np.testing.assert_allclose(out, expected)
 
 
-@pytest.mark.parametrize("backend", BACKENDS + ["debug", "tpu:pallas"])
+@pytest.mark.parametrize("backend", BACKENDS + ["debug", "gpu"])
 def test_iterator_access_intervals(backend):
     """K is absolute (domain-based), not interval-relative."""
 
@@ -666,10 +666,10 @@ def test_iterator_access_intervals(backend):
     np.testing.assert_allclose(out, expected)
 
 
-@pytest.mark.parametrize("backend", BACKENDS + ["debug", "tpu:pallas"])
+@pytest.mark.parametrize("backend", BACKENDS + ["debug", "gpu"])
 def test_iterator_access_sequential(backend):
     """K-dependent coefficient inside a FORWARD carry chain (plane-scan in
-    the jax backend, staged kernel in Pallas)."""
+    the jax backend, the K-sweep kernel on gpu)."""
 
     def s(out: Field3D):
         with computation(FORWARD):
@@ -685,7 +685,7 @@ def test_iterator_access_sequential(backend):
     np.testing.assert_allclose(out, expected)
 
 
-@pytest.mark.parametrize("backend", BACKENDS + ["debug", "tpu:pallas"])
+@pytest.mark.parametrize("backend", BACKENDS + ["debug", "gpu"])
 def test_iterator_access_backward(backend):
     def s(out: Field3D):
         with computation(BACKWARD):
@@ -702,7 +702,7 @@ def test_iterator_access_backward(backend):
     np.testing.assert_allclose(out, np.broadcast_to(expected_col, (2, 2, nk)))
 
 
-@pytest.mark.parametrize("backend", BACKENDS + ["debug", "tpu:pallas"])
+@pytest.mark.parametrize("backend", BACKENDS + ["debug", "gpu"])
 def test_iterator_access_in_condition(backend):
     """K in a branch condition masks per-level."""
 

@@ -12,7 +12,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 from examples.isentropic_diagnostics import run  # noqa: E402
 
 
-@pytest.mark.parametrize("backend", ["numpy", "jax", "tpu:pallas"])
+@pytest.mark.parametrize("backend", ["numpy", "jax", "gpu"])
 def test_isentropic_diagnostics_match_oracle(backend):
     errs, _ = run(backend=backend, nx=10, ny=18, nz=16, verbose=False)
     for name, err in errs.items():

@@ -110,8 +110,8 @@ def test_if_else_definite_assignment_accepted():
 def test_inline_temporaries_collapses_hdiff():
     """OnTheFlyMerging equivalent with a recompute-volume cap: hdiff's
     single-use chains (res/flx/fly) inline away, while the laplacian —
-    read at 4 shifted points — stays materialized (one VMEM plane computed
-    once in the Pallas kernel instead of 4 shifted recomputes); the
+    read at 4 shifted points — stays materialized (computed once instead
+    of 4 shifted recomputes); the
     in_field halo requirement is unchanged."""
     analyzed = analyze(defs.horizontal_diffusion, opts())
     stmts = [s for _, _, s in analyzed.stencil.walk_stmts()]

@@ -48,9 +48,9 @@ def test_unrolled_power_on_pallas_interpret():
         with computation(PARALLEL), interval(...):
             out = (a + 1.0) ** 3
 
-    st = gtscript.stencil(backend="tpu:pallas", definition=cube)
+    st = gtscript.stencil(backend="gpu", definition=cube)
     a = storage.from_array(np.linspace(0.0, 1.0, 8 * 16 * 4).reshape(8, 16, 4),
-                           backend="tpu:pallas")
-    out = storage.zeros((8, 16, 4), backend="tpu:pallas")
+                           backend="gpu")
+    out = storage.zeros((8, 16, 4), backend="gpu")
     st(a=a, out=out)
     np.testing.assert_allclose(np.asarray(out), (np.asarray(a) + 1.0) ** 3, rtol=1e-6)

@@ -203,7 +203,7 @@ def test_chain_of_temps_moves_together():
 
 
 def test_fusion_on_pallas_interpret():
-    """The fused stencil serves from the staged kernel (CPU interpret)."""
+    """The fused stencil serves from the K-sweep kernel (CPU interpret)."""
 
     def cum_coeff(a: F, out: F):
         with computation(PARALLEL), interval(...):
@@ -214,19 +214,21 @@ def test_fusion_on_pallas_interpret():
             with interval(1, None):
                 out = out[0, 0, -1] + c
 
-    st = gtscript.stencil(backend="tpu:pallas", definition=cum_coeff)
+    st = gtscript.stencil(backend="gpu", definition=cum_coeff)
     rng = np.random.default_rng(6)
-    a = storage.from_array(rng.random((8, 16, 6)), backend="tpu:pallas")
-    out = storage.zeros((8, 16, 6), backend="tpu:pallas")
-    st(a=a, out=out)
+    a = storage.from_array(rng.random((8, 16, 6)), backend="gpu")
+    out = storage.zeros((8, 16, 6), backend="gpu")
+    info = {}
+    st(a=a, out=out, exec_info=info)
+    assert info["kernel"] == "triton-interpret"
     expect = np.cumsum(np.asarray(a) * 2.0 + 1.0, axis=2)
     np.testing.assert_allclose(np.asarray(out), expect, rtol=1e-6)
 
 
 def test_write_only_out_halo_preserved_staged():
-    """Seed-skip regression: a write-only out field with full-K coverage
-    skips the seed stream; the decode paste must still preserve halo
-    points outside the compute domain."""
+    """A write-only out field with full-K coverage, written by the K-sweep
+    kernel over an offset domain: halo points outside the compute domain
+    keep their content."""
 
     def diff(a: F, out: F):
         with computation(FORWARD):
@@ -235,11 +237,11 @@ def test_write_only_out_halo_preserved_staged():
             with interval(1, None):
                 out = out[0, 0, -1] * 0.5 + a[1, 0, 0]
 
-    st = gtscript.stencil(backend="tpu:pallas", definition=diff)
+    st = gtscript.stencil(backend="gpu", definition=diff)
     rng = np.random.default_rng(7)
     shape = (10, 18, 5)
-    a = storage.from_array(rng.random(shape), backend="tpu:pallas")
-    out = storage.from_array(np.full(shape, 7.0), backend="tpu:pallas")
+    a = storage.from_array(rng.random(shape), backend="gpu")
+    out = storage.from_array(np.full(shape, 7.0), backend="gpu")
     st(a=a, out=out, origin=(1, 1, 0), domain=(8, 16, 5))
     o = np.asarray(out)
     # Halo frame untouched.
@@ -255,9 +257,9 @@ def test_write_only_out_halo_preserved_staged():
 
 
 def test_write_only_out_high_halo_preserved_staged():
-    """Seed-skip with a zero origin but a public array LARGER than the
-    domain: the high-side halo must survive the native write-back (the
-    backend pastes the domain region onto the previous native)."""
+    """Zero origin but a public array LARGER than the domain: the
+    high-side halo must survive the kernel's write-back of the domain
+    levels."""
 
     def diff2(a: F, out: F):
         with computation(FORWARD):
@@ -266,11 +268,11 @@ def test_write_only_out_high_halo_preserved_staged():
             with interval(1, None):
                 out = out[0, 0, -1] * 0.5 + a
 
-    st = gtscript.stencil(backend="tpu:pallas", definition=diff2)
+    st = gtscript.stencil(backend="gpu", definition=diff2)
     rng = np.random.default_rng(8)
     shape = (10, 18, 6)
-    a = storage.from_array(rng.random(shape), backend="tpu:pallas")
-    out = storage.from_array(np.full(shape, 7.0), backend="tpu:pallas")
+    a = storage.from_array(rng.random(shape), backend="gpu")
+    out = storage.from_array(np.full(shape, 7.0), backend="gpu")
     st(a=a, out=out, origin=(0, 0, 0), domain=(8, 16, 6))
     o = np.asarray(out)
     assert np.all(o[8:, :, :] == 7.0)

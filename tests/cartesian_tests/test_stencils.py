@@ -22,8 +22,8 @@ from .definitions import (
 from .definitions import CPU_BACKENDS as _REGISTERED_CPU
 
 # Backends exercised here come from the live registry (reference
-# definitions.py:34-54); tpu:pallas has its own module (interpret mode).
-ALL_BACKENDS = [b for b in _REGISTERED_CPU if b != "tpu:pallas"]
+# definitions.py:34-54); gpu has its own module (interpret mode).
+ALL_BACKENDS = list(_REGISTERED_CPU)
 FAST_BACKENDS = [b for b in ALL_BACKENDS if b != "debug"]  # debug is O(points) Python
 
 

@@ -135,9 +135,9 @@ def test_scalar_param_promotes_with_field(backend):
     np.testing.assert_allclose(got, arrays["a"] * 1.5, rtol=1e-6)
 
 
-# --- half-precision floats (TPU-build extension: bfloat16/float16) -----------
+# --- half-precision floats (extension: bfloat16/float16) ---------------------
 #
-# bfloat16 is the TPU-native narrow float. The promotion model: bf16 × f32
+# The promotion model: bf16 × f32
 # -> f32, bf16 × f16 -> f32, bf16 × int -> bf16 (JAX lattice where NumPy's
 # has no entry), and numeric Python literals adapt ("weak typing") to a
 # half-precision operand instead of widening the expression.
@@ -237,7 +237,8 @@ from gt4py_tpu.cartesian.gtscript import FORWARD  # noqa: E402
 
 @pytest.mark.parametrize("backend", ALL_BACKENDS)
 def test_bf16_sequential_carry(backend):
-    """bf16 fields through a FORWARD carry chain (staged Pallas kernel)."""
+    """bf16 fields through a FORWARD carry chain (the XLA scan: the
+    K-sweep kernel takes float32/float64 fields only)."""
 
     def cumsum(a: BF16, out: BF16):
         with computation(FORWARD):

@@ -26,7 +26,7 @@ Ioff = FieldOffset("Ioff", source=IDim, target=(IDim,))
 Joff = FieldOffset("Joff", source=JDim, target=(JDim,))
 PROV = {"Ioff": IDim, "Joff": JDim}
 
-BACKEND = "jax"  # CPU-safe cartesian backend; tpu:pallas shares the GTIR
+BACKEND = "jax"  # CPU-safe cartesian backend; gpu shares the GTIR
 
 
 def _text_roundtrip(stencil):

@@ -1,6 +1,7 @@
 """Field-operator -> cartesian-kernel bridge (SURVEY §7 step 8): the
 structured subset of the field-view DSL executes through the cartesian
-Pallas/XLA kernels; results must match the embedded oracle exactly."""
+``gpu`` backend (XLA, and the K-sweep kernel for scans); results must
+match the embedded oracle exactly."""
 
 import numpy as np
 import pytest
@@ -35,7 +36,7 @@ def test_bridge_lap_matches_embedded(rng):
     lap.with_backend(None)(phi, out=out_e, offset_provider=PROV)
 
     out_p = gtx.zeros({IDim: (1, n - 1), JDim: (1, n - 1), KDim: 4})
-    op = lap.with_backend("tpu:pallas")
+    op = lap.with_backend("gpu")
     op(phi, out=out_p, offset_provider=PROV)
     assert op._bridge_cache and all(v is not None for v in op._bridge_cache.values())
     np.testing.assert_allclose(out_p.asnumpy(), out_e.asnumpy(), rtol=1e-13)
@@ -62,7 +63,7 @@ def test_bridge_hdiff_matches_embedded(rng):
     out_e = gtx.zeros(dom)
     hdiff_op.with_backend(None)(inp, coeff, out=out_e, offset_provider=PROV)
 
-    op = hdiff_op.with_backend("tpu:pallas")
+    op = hdiff_op.with_backend("gpu")
     out_p = gtx.zeros(dom)
     op(inp, coeff, out=out_p, offset_provider=PROV)
     assert all(v is not None for v in op._bridge_cache.values())
@@ -82,7 +83,7 @@ def test_bridge_scalar_params_and_math(rng):
     dom = {IDim: n, JDim: n}
     out_e = gtx.zeros(dom)
     damp.with_backend(None)(a, b, 1.5, out=out_e, offset_provider={})
-    op = damp.with_backend("tpu:pallas")
+    op = damp.with_backend("gpu")
     out_p = gtx.zeros(dom)
     op(a, b, 1.5, out=out_p, offset_provider={})
     assert all(v is not None for v in op._bridge_cache.values())
@@ -100,7 +101,7 @@ def test_bridge_nested_operator_calls(rng):
     dom = {IDim: (2, n - 2), JDim: (2, n - 2)}
     out_e = gtx.zeros(dom)
     laplap.with_backend(None)(phi, out=out_e, offset_provider=PROV)
-    op = laplap.with_backend("tpu:pallas")
+    op = laplap.with_backend("gpu")
     out_p = gtx.zeros(dom)
     op(phi, out=out_p, offset_provider=PROV)
     assert all(v is not None for v in op._bridge_cache.values())
@@ -134,7 +135,7 @@ def test_unstructured_falls_back_to_embedded(rng):
     e2v = gtx.as_connectivity([E, E2VDim], V, e2v_np)
     v2e = gtx.as_connectivity([V, V2EDim], E, v2e_np)
     out = gtx.zeros({V: nv})
-    nabla.with_backend("tpu:pallas")(
+    nabla.with_backend("gpu")(
         pp, s_x, sign, vol, out=out, offset_provider={"E2V": e2v, "V2E": v2e}
     )
     zavg = 0.5 * (pp.asnumpy()[e2v_np[:, 0]] + pp.asnumpy()[e2v_np[:, 1]]) * s_x.asnumpy()
@@ -142,8 +143,8 @@ def test_unstructured_falls_back_to_embedded(rng):
     np.testing.assert_allclose(out.asnumpy(), expected, rtol=1e-12)
 
 
-# --- scan_operator bridging (VERDICT r2 item 2: scans onto the staged
-# Pallas kernels, reference foast_to_gtir.py:123-148) ------------------------
+# --- scan_operator bridging (scans onto the K-sweep kernel, reference
+# foast_to_gtir.py:123-148) --------------------------------------------------
 
 
 def _bridged(op) -> bool:
@@ -152,14 +153,16 @@ def _bridged(op) -> bool:
 
 
 def _staged(op) -> bool:
+    """The bridged stencil's last call ran the K-sweep kernel (in the
+    Pallas interpreter on the CPU test platform)."""
     for v in (getattr(op, "_bridge_cache", None) or {}).values():
         if v is not None:
-            return getattr(v.backend, "last_strategy", None) == "staged"
+            return getattr(v.backend, "last_kernel", None) == "triton-interpret"
     return False
 
 
 def test_scan_bridge_cumsum(rng):
-    @gtx.scan_operator(axis=KDim, forward=True, init=0.0, backend="tpu:pallas")
+    @gtx.scan_operator(axis=KDim, forward=True, init=0.0, backend="gpu")
     def cumsum(carry: float, a: float) -> float:
         return carry + a
 
@@ -171,11 +174,11 @@ def test_scan_bridge_cumsum(rng):
         np.asarray(out.ndarray), np.cumsum(data, axis=2), rtol=1e-12
     )
     assert _bridged(cumsum)
-    assert _staged(cumsum), "scan must serve from the staged Pallas kernel"
+    assert _staged(cumsum), "scan must serve from the K-sweep kernel"
 
 
 def test_scan_bridge_backward(rng):
-    @gtx.scan_operator(axis=KDim, forward=False, init=0.0, backend="tpu:pallas")
+    @gtx.scan_operator(axis=KDim, forward=False, init=0.0, backend="gpu")
     def back(carry: float, a: float) -> float:
         return carry * 0.5 + a
 
@@ -194,7 +197,7 @@ def test_scan_bridge_backward(rng):
 
 def test_scan_bridge_tuple_carry(rng):
     @gtx.scan_operator(
-        axis=KDim, forward=True, init=(0.0, 1.0), backend="tpu:pallas"
+        axis=KDim, forward=True, init=(0.0, 1.0), backend="gpu"
     )
     def pair(carry: tuple, a: float) -> tuple:
         s, p = carry
@@ -218,7 +221,7 @@ def test_scan_bridge_tuple_carry(rng):
 
 
 def test_scan_bridge_scalar_param_and_where(rng):
-    @gtx.scan_operator(axis=KDim, forward=True, init=0.0, backend="tpu:pallas")
+    @gtx.scan_operator(axis=KDim, forward=True, init=0.0, backend="gpu")
     def damped(carry: float, a: float, alpha: float) -> float:
         return where(a > 0.5, carry * alpha + a, carry)
 
@@ -242,7 +245,7 @@ def test_scan_bridge_matches_embedded_oracle(rng):
         return carry * 0.8 + a * b
 
     bridged_op = gtx.scan_operator(
-        axis=KDim, forward=True, init=0.0, backend="tpu:pallas"
+        axis=KDim, forward=True, init=0.0, backend="gpu"
     )(defn)
     embedded_op = gtx.scan_operator(axis=KDim, forward=True, init=0.0, backend=None)(
         defn
@@ -265,7 +268,7 @@ def test_scan_bridge_matches_embedded_oracle(rng):
 def test_scan_bridge_kless_arg_broadcasts(rng):
     """An IJ (K-less) argument broadcasts across levels inside the scan."""
 
-    @gtx.scan_operator(axis=KDim, forward=True, init=0.0, backend="tpu:pallas")
+    @gtx.scan_operator(axis=KDim, forward=True, init=0.0, backend="gpu")
     def acc(carry: float, a: float, w: float) -> float:
         return carry + a * w
 
@@ -285,7 +288,7 @@ def test_scan_bridge_kless_arg_broadcasts(rng):
 
 # --- fused scan compositions: field_operators containing scan calls ----------
 # The scan calls inline as sequential vertical loops of ONE cartesian
-# stencil (scan outputs = temporaries -> VMEM carries in the staged
+# stencil (scan outputs = temporaries -> register carries in the K-sweep
 # kernel), the reference's lift-inlining-into-ScanExecution architecture
 # (codegens/gtfn/itir_to_gtfn_ir.py).
 
@@ -305,7 +308,7 @@ def _tri_bwd(x_kp1, cp: float, dp: float):
     return dp - cp * x_kp1
 
 
-@gtx.field_operator(backend="tpu:pallas")
+@gtx.field_operator(backend="gpu")
 def solve_tridiag(a, b, c, d):
     cp, dp = _tri_fwd(a, b, c, d)
     return _tri_bwd(cp, dp)
@@ -331,7 +334,7 @@ def test_fused_tridiag_composition(rng):
     )
     np.testing.assert_allclose(np.asarray(out.ndarray), expected, rtol=1e-10)
     var = next(v for v in solve_tridiag._bridge_cache.values() if v is not None)
-    assert var.backend.last_strategy == "staged"
+    assert var.backend.last_kernel == "triton-interpret"
     orders = [vl.loop_order.name for vl in var.backend.analyzed.stencil.vertical_loops]
     assert orders == ["FORWARD", "BACKWARD"], orders
 
@@ -367,7 +370,7 @@ def _vadv_bwd(carry, ccol, dcol, upos, kidx, klast, dtr):
     return (data, dtr * (data - upos))
 
 
-@gtx.field_operator(backend="tpu:pallas")
+@gtx.field_operator(backend="gpu")
 def next_vadv(utens_stage, u_stage, wcon, u_pos, utens, kidx, klast: int, dtr: float):
     ccol, dcol = _vadv_fwd(
         wcon(Ioff[1]), wcon, wcon(Ioff[1])(Koff[1]), wcon(Koff[1]),
@@ -403,7 +406,7 @@ def test_fused_vadv_composition(rng):
     )
     np.testing.assert_allclose(np.asarray(out.ndarray), expected, rtol=1e-10)
     var = next(v for v in next_vadv._bridge_cache.values() if v is not None)
-    assert var.backend.last_strategy == "staged"
+    assert var.backend.last_kernel == "triton-interpret"
     orders = [vl.loop_order.name for vl in var.backend.analyzed.stencil.vertical_loops]
     assert orders == ["FORWARD", "BACKWARD"], orders
 
@@ -415,7 +418,7 @@ def test_scan_bridge_2d_field_falls_back_correctly(rng):
     """A scan over an (I, K) field (no J) must produce correct results —
     via the bridge if supported, via fallback otherwise, never a crash."""
 
-    @gtx.scan_operator(axis=KDim, forward=True, init=0.0, backend="tpu:pallas")
+    @gtx.scan_operator(axis=KDim, forward=True, init=0.0, backend="gpu")
     def cum2d(carry: float, a: float) -> float:
         return carry + a
 
@@ -435,7 +438,7 @@ def test_traced_scan_call_with_kwargs(rng):
     def kcum(carry: float, a: float) -> float:
         return carry + a
 
-    @gtx.field_operator(backend="tpu:pallas")
+    @gtx.field_operator(backend="gpu")
     def op(a):
         return kcum(a=a)
 
@@ -463,7 +466,7 @@ def test_composite_scan_args_dependency_order(rng):
     def bwd(x_kp1, cp: float, dp: float):
         return dp - cp * x_kp1
 
-    @gtx.field_operator(backend="tpu:pallas")
+    @gtx.field_operator(backend="gpu")
     def solve(q, kappa, kidx, klast: int, r: float):
         lower = where(kidx == 0, 0.0, -r * kappa)
         upper = where(kidx == klast, 0.0, -r * kappa)
@@ -523,7 +526,7 @@ def test_scan_bridge_bool_carry_specializes(rng):
             else State(q=qn, w=wn, first=False)
         )
 
-    @gtx.field_operator(backend="tpu:pallas")
+    @gtx.field_operator(backend="gpu")
     def solve(w, q, a, b, c):
         qr, wr, dummy = sc(w, q, a, b, c)
         return qr + wr

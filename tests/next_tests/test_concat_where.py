@@ -295,7 +295,7 @@ def test_concat_where_bridged_sections(rng):
     """Through the cartesian bridge, vertical concat_where lowers to
     K-interval sections (specialized straight-line code, no masks)."""
 
-    @gtx.field_operator(backend="tpu:pallas")
+    @gtx.field_operator(backend="gpu")
     def bc(phi, psi):
         return concat_where(
             KDim == 0, phi * 2.0, concat_where(KDim == NK - 1, psi * 3.0, 0.5 * (phi + psi))

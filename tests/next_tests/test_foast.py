@@ -541,7 +541,7 @@ def test_bridged_scan_composition_uses_foast_form():
     out_jax = gtx.zeros({I: 6, J: 5, K: 8})
     op(f, out=out_jax)
     out_pl = gtx.zeros({I: 6, J: 5, K: 8})
-    op.with_backend("tpu:pallas")(f, out=out_pl)
+    op.with_backend("gpu")(f, out=out_pl)
     expect = 2 * np.cumsum(f.asnumpy(), axis=2)
     np.testing.assert_allclose(out_jax.asnumpy(), expect, rtol=1e-12)
     np.testing.assert_allclose(out_pl.asnumpy(), expect, rtol=1e-12)

@@ -320,7 +320,7 @@ def test_field_utils_coverage():
     # verify_device: jnp arrays on the CPU tier
     assert verify_device(f, "cpu")
     assert verify_device((f, f), "cpu")
-    assert not verify_device(f, "tpu")
+    assert not verify_device(f, "gpu")
     assert verify_device(np.ones(2), "cpu")  # raw numpy counts as cpu
     # field_from_typespec
     spec = FieldType(dims=(If,), dtype=np.dtype(np.float32))

@@ -19,7 +19,7 @@ pytestmark = pytest.mark.skipif(
 
 
 def _periodic_hdiff_oracle(in_field, coeff):
-    """hdiff on a periodic domain via np.roll (halo wrap = ICI torus)."""
+    """hdiff on a periodic domain via np.roll (periodic halo wrap)."""
 
     def roll(a, di, dj):
         return np.roll(np.roll(a, -di, axis=0), -dj, axis=1)
@@ -104,7 +104,7 @@ def _clamped_hdiff_oracle(in_field, coeff):
 
 def test_distributed_clamp_boundary():
     """Non-periodic (edge-replicated) global boundaries (round-1 verdict
-    item 8): must match the np.pad(mode='edge') oracle, NOT the torus."""
+    item 8): must match the np.pad(mode='edge') oracle, NOT the wrap."""
     mesh = CartesianMesh()
     st = gtscript.stencil(backend="jax", definition=defs.horizontal_diffusion)
     dist = DistributedStencil(st, mesh, boundary="clamp")
@@ -177,18 +177,34 @@ def test_distributed_vadv_interval_sections():
 
 
 def test_distributed_pallas_backend_in_shards():
-    """The Pallas kernel strategies serve INSIDE shard_map shards
-    (interpret mode on the CPU test mesh; round-1 verdict item 8)."""
+    """The ``gpu`` backend's kernel choice holds INSIDE shard_map shards:
+    hdiff on XLA, the tridiagonal solve in the K-sweep kernel (interpret
+    mode on the CPU test mesh)."""
     mesh = CartesianMesh()
-    st = gtscript.stencil(backend="tpu:pallas", definition=defs.horizontal_diffusion)
-    dist = DistributedStencil(st, mesh, backend="tpu:pallas")
+    st = gtscript.stencil(backend="gpu", definition=defs.horizontal_diffusion)
+    dist = DistributedStencil(st, mesh, backend="gpu")
     rng = np.random.default_rng(17)
     shape = (32, 16, 4)
     in_field = rng.random(shape)
     coeff = rng.random(shape)
     out = dist.apply(in_field=in_field, coeff=coeff, out_field=np.zeros(shape))
+    assert dist.last_kernel == "xla"
     expected = _periodic_hdiff_oracle(in_field, coeff)
     np.testing.assert_allclose(np.asarray(out["out_field"]), expected, rtol=1e-12)
+
+    tri = DistributedStencil(
+        gtscript.stencil(backend="gpu", definition=defs.tridiagonal_solver), mesh
+    )
+    shape = (16, 8, 6)
+    inf, sup = -rng.random(shape), -rng.random(shape)
+    diag, rhs = np.full(shape, 4.0), rng.random(shape)
+    out = tri.apply(inf=inf, diag=diag, sup=sup, rhs=rhs, out=np.zeros(shape))
+    assert tri.last_kernel == "triton-interpret"
+    np.testing.assert_allclose(
+        np.asarray(out["out"]),
+        defs.validate_tridiagonal_solver(inf, diag, sup, rhs),
+        rtol=1e-12,
+    )
 
 
 # --- uneven domain decomposition (pad-and-trim, round-2 verdict item 7) -----

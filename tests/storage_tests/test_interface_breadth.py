@@ -9,7 +9,7 @@ import pytest
 from gt4py_tpu import storage
 from gt4py_tpu.storage.storage import Storage
 
-BACKENDS = ["debug", "numpy", "jax", "tpu:pallas"]
+BACKENDS = ["debug", "numpy", "jax", "gpu"]
 DTYPES = [np.float32, np.float64, np.int32, np.int64, np.bool_]
 
 

@@ -11,7 +11,7 @@ def test_zeros_ones_full_empty():
     assert z.shape == (3, 4, 5) and z.dtype == np.float64
     np.testing.assert_array_equal(np.asarray(z), 0.0)
 
-    o = storage.ones((2, 2, 2), np.float32, backend="tpu:pallas")
+    o = storage.ones((2, 2, 2), np.float32, backend="gpu")
     assert o.dtype == np.float32
     np.testing.assert_array_equal(np.asarray(o), 1.0)
 
